@@ -1,0 +1,70 @@
+"""Synthetic dataset generators (counterpart of ``repro.data.generator``).
+
+:func:`make_synthetic_zipf` is the paper's §7.1 "synthetic" dataset: 16
+columns, column k Zipf with parameter ``0.25·k``; :func:`store_dataset`
+encodes values into a :class:`~repro_torch.data.chunkstore.ChunkStore`.
+Both draw from numpy ``Generator``s exactly as the reference does, so the
+same seed gives the same table in either package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.data.chunkstore import ChunkStore
+from repro_torch.data.formats import AsciiFixedFormat, BinaryBigEndianFormat
+
+
+def bounded_zipf(rng: np.random.Generator, s: float, size: int,
+                 support: int = 100_000, vmax: float = 1e8 - 1) -> np.ndarray:
+    """Zipf(s) over a finite support, scaled to [0, vmax] (inverse-CDF
+    sampling, valid for any s >= 0; s = 0 is uniform)."""
+    ranks = np.arange(1, support + 1, dtype=np.float64)
+    w = ranks ** -s
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    u = rng.random(size)
+    idx = np.searchsorted(cdf, u)
+    return idx.astype(np.float64) * (vmax / support)
+
+
+def make_synthetic_zipf(num_tuples: int = 131_072, num_cols: int = 16,
+                        seed: int = 0) -> np.ndarray:
+    """The paper's synthetic dataset at configurable scale."""
+    rng = np.random.default_rng(seed)
+    cols = [bounded_zipf(rng, 0.25 * k, num_tuples) for k in range(num_cols)]
+    return np.stack(cols, axis=1)
+
+
+def store_dataset(values: np.ndarray, num_chunks: int, fmt: str = "ascii",
+                  name: str = "dataset", directory: str | None = None,
+                  uneven: bool = False, seed: int = 0,
+                  uneven_spread: float = 0.25, encode_map=map) -> ChunkStore:
+    """Encode ``values`` into a chunked raw store.
+
+    ``uneven=True`` draws chunk sizes from a ±``uneven_spread`` jitter around
+    the mean.  ``encode_map`` maps the codec's ``encode`` over the chunks'
+    value blocks (pass a thread pool's ``map`` to encode chunks in
+    parallel; numpy releases the interpreter lock)."""
+    t, c = values.shape
+    num_chunks = max(min(num_chunks, t // 2), 1)  # no empty chunks
+    codec = (AsciiFixedFormat(c) if fmt == "ascii" else BinaryBigEndianFormat(c))
+    if uneven:
+        rng = np.random.default_rng(seed + 1)
+        w = rng.uniform(1.0 - uneven_spread, 1.0 + uneven_spread, num_chunks)
+        sizes = np.maximum((w / w.sum() * t).astype(np.int64), 2)
+        while sizes.sum() > t:
+            sizes[np.argmax(sizes)] -= 1
+        while sizes.sum() < t:
+            sizes[np.argmin(sizes)] += 1
+    else:
+        base = t // num_chunks
+        sizes = np.full(num_chunks, base, np.int64)
+        sizes[: t - base * num_chunks] += 1
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    blocks = [values[bounds[j]:bounds[j + 1]] for j in range(num_chunks)]
+    store = ChunkStore.create(name=name, codec=codec, directory=directory)
+    for j, raw in enumerate(encode_map(codec.encode, blocks)):
+        store.append_chunk(raw, num_tuples=int(sizes[j]))
+    store.finalize()
+    return store

@@ -1,0 +1,107 @@
+"""Wrapper of the CUDA kernel ``csrc/slot_extract.cu`` (the port of the TPU
+kernel ``repro/kernels/slot_extract.py::slot_extract_pallas``).
+
+:func:`slot_extract_cuda` checks its inputs, allocates the outputs and the
+per-block scratch with ``torch.empty``, launches the two kernels on the
+current stream, and raises if the launch is refused.  It never falls back
+to the plain version: that is :func:`repro_torch.kernels.ref.slot_extract_ref`,
+which :func:`repro_torch.kernels.ops.slot_extract` takes for CPU tensors only.
+``slot_extract_cuda.launches`` counts the calls that launched the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.data.formats import FIELD_BYTES
+from repro_torch.kernels import _build
+
+_P = ctypes.c_void_p
+_ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+             _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
+
+
+def _lib():
+    lib = _build.load("slot_extract")
+    if lib.slot_extract_launch.argtypes is None:
+        lib.slot_extract_launch.argtypes = _ARGTYPES
+        lib.slot_extract_launch.restype = ctypes.c_int
+        lib.slot_extract_threads_per_block.argtypes = []
+        lib.slot_extract_threads_per_block.restype = ctypes.c_int
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, dim: int, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != dim:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{dim} dims")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def slot_extract_cuda(packed: torch.Tensor, jw: torch.Tensor,
+                      idx: torch.Tensor, b_eff: torch.Tensor,
+                      coeffs: torch.Tensor, lo: torch.Tensor,
+                      hi: torch.Tensor, is_count: torch.Tensor,
+                      gate: torch.Tensor, weights: torch.Tensor,
+                      return_cols: bool = False):
+    """packed (N, M_max, 16·C) uint8, jw (W,) / idx (W, B) / b_eff (W,)
+    int32, coeffs/lo/hi (S, C) and is_count/gate/weights (S,) float32, all
+    contiguous on one CUDA device -> (stats (W, S, 4), cols (W, B, C) |
+    None), float32."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"slot_extract_cuda needs CUDA tensors, got {dev}")
+    _check(packed, "packed", torch.uint8, 3, dev)
+    n, m_max, rec = packed.shape
+    s, c = coeffs.shape
+    if rec != c * FIELD_BYTES:
+        raise ValueError(f"record width {rec} != {FIELD_BYTES} x {c} columns")
+    _check(idx, "idx", torch.int32, 2, dev)
+    w, b = idx.shape
+    for name, t in (("jw", jw), ("b_eff", b_eff)):
+        _check(t, name, torch.int32, 1, dev)
+        if t.shape[0] != w:
+            raise ValueError(f"{name} has {t.shape[0]} workers, idx has {w}")
+    for name, t in (("coeffs", coeffs), ("lo", lo), ("hi", hi)):
+        _check(t, name, torch.float32, 2, dev)
+        if tuple(t.shape) != (s, c):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {(s, c)}")
+    for name, t in (("is_count", is_count), ("gate", gate),
+                    ("weights", weights)):
+        _check(t, name, torch.float32, 1, dev)
+        if t.shape[0] != s:
+            raise ValueError(f"{name} has {t.shape[0]} slots, expected {s}")
+    if w == 0 or b == 0 or s == 0:
+        raise ValueError("slot_extract_cuda needs W, B and S >= 1")
+    lib = _lib()
+    tb = lib.slot_extract_threads_per_block()
+    nblk = (b + tb - 1) // tb
+    partials = torch.empty((w, nblk, s, 4), dtype=torch.float32, device=dev)
+    stats = torch.empty((w, s, 4), dtype=torch.float32, device=dev)
+    cols = (torch.empty((w, b, c), dtype=torch.float32, device=dev)
+            if return_cols else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.slot_extract_launch(
+            packed.data_ptr(), n, m_max, c, jw.data_ptr(), idx.data_ptr(),
+            b_eff.data_ptr(), coeffs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            is_count.data_ptr(), gate.data_ptr(), weights.data_ptr(),
+            w, b, s, partials.data_ptr(), stats.data_ptr(),
+            0 if cols is None else cols.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"slot_extract kernel launch failed: CUDA error "
+                           f"{err}")
+    slot_extract_cuda.launches += 1
+    return stats, cols
+
+
+slot_extract_cuda.launches = 0
