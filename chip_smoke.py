@@ -10,7 +10,12 @@ either is missing or any phase fails.  Phases:
                sm_90a (one process per source, all started together).
 2. kernel    — each kernel against its plain PyTorch version on the card at
                the main path's shapes (W=4 workers, C=16 columns, S=8 slots,
-               B in {8, 64, 4096}), with the tolerance stated below.
+               B in {8, 64, 4096}, cache cap 128), with the tolerance stated
+               below, and three equalities bit for bit: the slab kernel on
+               chunks ``jw`` == the packed kernel on those ``jw``; the
+               decoded kernel fed by ``extract_parse`` == the slab kernel on
+               the raw rows; a mixed pair with complementary budgets == the
+               single kernel.
 3. server    — the deployment: the paper's synthetic dataset (§7.1; 16
                Zipf columns, column k with s = 0.25·k) as 256-byte ASCII
                records, 8,388,608 tuples (2 GiB) in 128 chunks of 65,536,
@@ -23,7 +28,19 @@ either is missing or any phase fails.  Phases:
 4. parity    — the port on the card and on the CPU, on the small workload of
                ``examples/serve_ola_workload.py``, must give identical integer
                engine state every round and identical per-query outcomes.
-5. times     — the kernel's time per launch beside its bound and the plain
+5. stream parity — the same workload at engine level (SlotOLAEngine,
+               mid-scan admission) four ways: packed on the card, streamed
+               with the decoded cache off and with a budget of two decoded
+               chunks (mixed rounds, evictions) on the card, streamed on the
+               CPU.  Integer state identical every round; the three card
+               runs' float state bit for bit equal.
+6. stream deployment — the deployment's store written to disk (128 chunk
+               files) and served with residency="stream" and a 1 GiB
+               decoded cache: every answer within 3·ε, slab-kernel +
+               decoded-kernel launches == rounds + mixed rounds,
+               extract_parse launches == decoded fills, peak device memory
+               below 512 MiB (printed beside the packed run's).
+7. times     — each kernel's time per launch beside its bound and the plain
                version's time, the mean server round, and the kernel's share
                of round time, each beside the card's name and power limit.
 
@@ -38,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -46,14 +64,21 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
-from repro_torch.core.engine import EngineConfig  # noqa: E402
+from repro_torch.core.engine import EngineConfig, SlotOLAEngine  # noqa: E402
 from repro_torch.core.queries import (  # noqa: E402
-    And, Column, Having, Linear, Query, Range, linear_plan)
+    And, Column, Having, Linear, Query, Range, empty_slot_table, encode_slot,
+    linear_plan, slot_table_set)
+from repro_torch.data.chunkstore import ChunkStore  # noqa: E402
 from repro_torch.data.generator import (  # noqa: E402
     make_synthetic_zipf, store_dataset)
+from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels.extract_parse import extract_parse_cuda  # noqa: E402
 from repro_torch.kernels.ref import slot_extract_ref  # noqa: E402
 from repro_torch.kernels.slot_extract import slot_extract_cuda  # noqa: E402
+from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
+    slot_eval_decoded_cuda, slot_extract_stream_cuda)
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
 from repro_torch.serve.ola_server import (  # noqa: E402
@@ -68,6 +93,22 @@ ARRIVAL_SEED = 11
 ARRIVALS_PER_MODEL_S = 20.0
 ENGINE = dict(num_workers=4, strategy="resource_aware", seed=7)
 OPTIONS = dict(max_slots=8, synopsis_budget_tuples=4096)
+DECODED_CACHE_BYTES = 1 << 30       # the stream deployment's decoded cache
+STREAM_PEAK_LIMIT = 512 << 20       # its device memory must stay below this
+CACHE_CAP = 128                     # the server's synopsis cache rows per chunk
+PROFILE_ROUNDS = 200                # rounds of each deployment profiled
+
+KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
+           slot_eval_decoded_cuda, extract_parse_cuda)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__.removesuffix("_cuda"): k.launches for k in KERNELS}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and the float32
 # rate outside the tensor cores, which the kernel's integer and float
@@ -261,6 +302,123 @@ def phase_kernel(packed: torch.Tensor, sizes: np.ndarray) -> list[dict]:
     return rows
 
 
+def ulps(got: np.ndarray, want: np.ndarray) -> float:
+    """Largest distance of ``got`` from ``want`` in float32 ulps of want."""
+    spacing = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    return float(np.max(np.abs(got.astype(np.float64) - want) / spacing,
+                        initial=0.0))
+
+
+def check_sums(got: np.ndarray, want: np.ndarray, b: int, what: str) -> float:
+    """The m lane equal, the sum lanes within (2B+16)·2^-24 relative (see
+    check_kernel); returns the largest relative error of the sums."""
+    if not np.array_equal(got[..., 0], want[..., 0]):
+        raise AssertionError(f"{what} B={b}: m lane differs")
+    rtol = (2 * b + 16) * 2.0 ** -24
+    err = np.abs(got[..., 1:] - want[..., 1:])
+    if (err > rtol * np.abs(want[..., 1:])).any():
+        raise AssertionError(f"{what} B={b}: sum lanes differ beyond "
+                             f"rtol={rtol:.3g}")
+    return float(np.max(err / np.maximum(np.abs(want[..., 1:]), 1e-30)))
+
+
+def stream_inputs(inputs, m_before=(0, 5, 100, 127)):
+    """The slab kernels' view of one round's packed-kernel inputs: the slab
+    holds chunk jw[w] at row w (all 65,536 rows), plus scan positions."""
+    packed, jw, idx, b_eff, *plan = inputs
+    slab = packed[jw.long()].contiguous()
+    mb = torch.tensor(m_before, dtype=torch.int32, device=packed.device)
+    return slab, idx, b_eff, plan, mb
+
+
+# The slab kernels against their plain versions (tolerances as for
+# slot_extract: m lane equal, sums within (2B+16)·2^-24; decoded values,
+# i.e. cache rows and extract_parse's output, within one float32 ulp of the
+# plain parse: both round each field's value once or twice from the same
+# digits), and the three bitwise equalities of the module docstring.
+def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
+    rng = np.random.default_rng(13)
+    out = {"stream": [], "decoded": [], "parse": []}
+    c = packed.shape[2] // FIELD_BYTES
+    for b in (8, 64, 4096):
+        inputs = kernel_inputs(packed, sizes, b, rng)
+        slab, idx, b_eff, plan, mb = stream_inputs(inputs)
+        coeffs, lo, hi, isc, gate, wts = plan
+        args = (idx, b_eff, coeffs, lo, hi, isc, gate, wts, mb)
+        got, rows = slot_extract_stream_cuda(slab, *args,
+                                             cache_cap=CACHE_CAP)
+        want = kref.slot_extract_stream_ref(slab, idx, b_eff, coeffs, lo, hi,
+                                            isc, gate, num_cols=c,
+                                            weights=wts)
+        want_rows = kref.stream_cache_rows_ref(slab, idx, b_eff, mb,
+                                               CACHE_CAP, c)
+        w, r, rec = slab.shape
+        dec = extract_parse_cuda(slab.reshape(w * r, rec), c)
+        plain_dec = kref.parse_ascii_ref(slab.reshape(w * r, rec), c)
+        dstats, drows = slot_eval_decoded_cuda(dec.reshape(w, r, c), *args,
+                                               cache_cap=CACHE_CAP)
+        dwant = kref.slot_eval_decoded_ref(dec.reshape(w, r, c), idx, b_eff,
+                                           coeffs, lo, hi, isc, gate,
+                                           weights=wts)
+        dwant_rows = kref.window_cache_rows_ref(
+            kref.gather_window(dec.reshape(w, r, c), idx), b_eff, mb,
+            CACHE_CAP)
+        packed_stats, _ = slot_extract_cuda(*inputs)
+        is_dec = torch.tensor([True, False, False, True], device=slab.device)
+        b_raw = torch.where(is_dec, torch.zeros_like(b_eff), b_eff)
+        m1, mrows1 = slot_extract_stream_cuda(slab, idx, b_raw, *args[2:],
+                                              cache_cap=CACHE_CAP)
+        m2, mrows2 = slot_eval_decoded_cuda(dec.reshape(w, r, c), idx,
+                                            b_eff - b_raw, *args[2:],
+                                            cache_cap=CACHE_CAP)
+        torch.cuda.synchronize()
+        h = {k: v.cpu().numpy() for k, v in dict(
+            got=got, rows=rows, want=want, want_rows=want_rows, dec=dec,
+            plain_dec=plain_dec, dstats=dstats, drows=drows, dwant=dwant,
+            dwant_rows=dwant_rows, packed=packed_stats, mixed=m1 + m2,
+            mixed_rows=mrows1 + mrows2).items()}
+        rel = check_sums(h["got"], h["want"], b, "slot_extract_stream")
+        rows_ulps = ulps(h["rows"], h["want_rows"])
+        if rows_ulps > 1.0:
+            raise AssertionError(f"B={b}: cache rows {rows_ulps} ulp from "
+                                 "the plain parse")
+        drel = check_sums(h["dstats"], h["dwant"], b, "slot_eval_decoded")
+        if not np.array_equal(h["drows"], h["dwant_rows"]):
+            raise AssertionError(f"B={b}: decoded cache rows differ")
+        parse_ulps = ulps(h["dec"], h["plain_dec"])
+        if parse_ulps > 1.0:
+            raise AssertionError(f"extract_parse {parse_ulps} ulp from the "
+                                 "plain parse")
+        # the three equalities, bit for bit (±0 compare equal)
+        if not np.array_equal(h["got"], h["packed"]):
+            raise AssertionError(f"B={b}: slab kernel != packed kernel")
+        if not (np.array_equal(h["dstats"], h["got"])
+                and np.array_equal(h["drows"], h["rows"])):
+            raise AssertionError(f"B={b}: decoded kernel != slab kernel")
+        if not (np.array_equal(h["mixed"], h["got"])
+                and np.array_equal(h["mixed_rows"], h["rows"])):
+            raise AssertionError(f"B={b}: mixed pair != single kernel")
+        out["stream"].append(dict(
+            B=b, max_rel_err_sums=rel, cache_rows_ulps=rows_ulps,
+            max_abs_err=float(np.max(np.abs(h["rows"] - h["want_rows"])))))
+        out["decoded"].append(dict(
+            B=b, max_rel_err_sums=drel, max_abs_err=float(
+                np.max(np.abs(h["drows"] - h["dwant_rows"])))))
+        out["parse"].append(dict(
+            rows=w * r, ulps=parse_ulps,
+            max_abs_err=float(np.max(np.abs(h["dec"] - h["plain_dec"])))))
+        log(f"[kernel] B={b}: slot_extract_stream sums max rel err "
+            f"{rel:.3g} (rtol {(2 * b + 16) * 2.0 ** -24:.3g}), cache rows "
+            f"within {rows_ulps:.0f} ulp; slot_eval_decoded sums max rel err "
+            f"{drel:.3g}, cache rows exact; extract_parse of {w * r} rows "
+            f"within {parse_ulps:.0f} ulp (max abs err "
+            f"{out['parse'][-1]['max_abs_err']})")
+        log(f"[kernel] B={b}: bitwise: slab == packed, decoded(extract_parse)"
+            f" == slab, mixed pair == single (stats and cache rows)")
+        del slab, dec, plain_dec
+    return out
+
+
 # -------------------------------------------------------------- server ----
 def run_server(store, queries, arrivals, device, on_round=None):
     server = OLAWorkloadServer(store, EngineConfig(**ENGINE),
@@ -276,6 +434,8 @@ def phase_server(store, values) -> dict:
     arrivals = [at for _, at in poisson_workload(
         queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
     exact = {q.name: exact_answer(values, q) for q in queries}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = run_server(store, queries, arrivals, "cuda")
     torch.cuda.synchronize()
@@ -287,12 +447,15 @@ def phase_server(store, values) -> dict:
     def on_round(srv):
         rungs.append(srv.engine.budget_ladder(float(srv.state.budget)))
 
-    slot_extract_cuda.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     results = server.run(on_round=on_round)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = slot_extract_cuda.launches
+    counts = launch_counts()
+    launches = counts["slot_extract"]
+    peak = torch.cuda.max_memory_allocated()
+    server.close()
     rungs = rungs[:server.rounds]
     if server.truncated or len(results) != len(queries):
         raise AssertionError("server run truncated")
@@ -321,9 +484,14 @@ def phase_server(store, values) -> dict:
     if launches != server.rounds:
         raise AssertionError(f"kernel launches {launches} != engine rounds "
                              f"{server.rounds}")
+    if sum(counts.values()) != launches:
+        raise AssertionError(f"the packed path launched a slab kernel: "
+                             f"{counts}")
+    log(f"[server] peak device memory {peak / 2**20:.1f} MiB")
     return dict(rounds=server.rounds, launches=launches, wall_s=wall,
                 rungs=rungs, packed=server.engine.packed,
-                sizes=np.asarray(store.chunk_sizes))
+                sizes=np.asarray(store.chunk_sizes), results=results,
+                peak=peak)
 
 
 # -------------------------------------------------------------- parity ----
@@ -393,6 +561,246 @@ def phase_parity() -> int:
     return len(on_card)
 
 
+# ------------------------------------------------------- stream parity ----
+STATE_FLOATS = ("budget", "t_io", "t_cpu", "cache")
+STATS_FLOATS = ("stats.ysum", "stats.ysq", "stats.psum")
+
+
+def engine_trace(store, queries, device, residency: str,
+                 decoded_bytes: int = 0,
+                 max_rounds: int = 400) -> tuple[list, dict]:
+    """A SlotOLAEngine with ``queries`` admitted mid-scan (one every other
+    round), driven until every slot stops or the scan is exhausted.
+    Returns each round's state (host copies) and the rounds per variant
+    with the decoded cache's hits, fills and evictions."""
+    cfg = EngineConfig(num_workers=4, seed=7, cache_cap=64,
+                       residency=residency, decoded_cache_bytes=decoded_bytes)
+    plans = ("resource_aware", "single_pass", "resource_aware", "holistic",
+             "single_pass")
+    eng = SlotOLAEngine(store, len(queries), cfg, device=device)
+    table = empty_slot_table(len(queries), store.codec.num_cols,
+                             device=device)
+    state = eng.init_state()
+    admit = {2 * i: (i, q) for i, q in enumerate(queries)}
+    trace, modes = [], {"none": 0, "mixed": 0, "all": 0}
+    try:
+        for r in range(max_rounds):
+            if r in admit:
+                i, q = admit[r]
+                table = slot_table_set(table, i, encode_slot(
+                    q, store.codec.num_cols, plan=plans[i]))
+            b = eng.budget_ladder(float(state.budget))
+            state, data = eng.round_data(state)
+            mode, data = eng.data_mode(data)
+            modes[mode] += 1
+            state, rep = eng.round_fn(b, mode)(state, table, data, eng.speeds)
+            rec = {f: getattr(state, f).cpu().numpy()
+                   for f in INT_FIELDS + STATE_FLOATS}
+            for f in ("m", "ysum", "ysq", "psum"):
+                rec["stats." + f] = getattr(state.stats, f).cpu().numpy()
+            trace.append(rec)
+            if r >= 2 * (len(queries) - 1) and (bool(rep.all_stopped)
+                                                or bool(rep.exhausted)):
+                break
+        if eng.pipeline is not None:
+            pf = eng.pipeline.counters()
+            for k in ("decoded_hits", "decoded_fills", "decoded_evictions"):
+                modes[k] = pf.get(k, 0)
+    finally:
+        eng.close()
+    return trace, modes
+
+
+def phase_stream_parity() -> dict:
+    """examples/serve_ola_workload.py's table (16,384 tuples x 8 columns,
+    64 ASCII chunks) and queries, at engine level."""
+    values = make_synthetic_zipf(num_tuples=16384, num_cols=8, seed=0)
+    store = store_dataset(values, num_chunks=64, fmt="ascii")
+    queries = [q for q, _ in small_workload(values)]
+    block = store.max_chunk_tuples * store.codec.num_cols * 4
+    # two decoded chunks for four workers evict every block before its
+    # worker's next round (mixed rounds, evictions, no hits); four chunks
+    # (one per worker) give hits as well
+    runs = {
+        "card packed": engine_trace(store, queries, "cuda", "packed"),
+        "card stream": engine_trace(store, queries, "cuda", "stream"),
+        "card stream, 2-chunk cache": engine_trace(
+            store, queries, "cuda", "stream", 2 * block),
+        "card stream, 4-chunk cache": engine_trace(
+            store, queries, "cuda", "stream", 4 * block),
+        "cpu stream": engine_trace(store, queries, "cpu", "stream"),
+    }
+    (base, _), *rest = runs.values()
+    for name, (trace, modes) in list(runs.items())[1:]:
+        if len(trace) != len(base):
+            raise AssertionError(f"stream parity: {name} ran {len(trace)} "
+                                 f"rounds, card packed {len(base)}")
+        floats = name.startswith("card")
+        for r, (a, b) in enumerate(zip(trace, base)):
+            for f in a:
+                if f in STATE_FLOATS or f in STATS_FLOATS:
+                    if floats and not np.array_equal(a[f], b[f]):
+                        raise AssertionError(f"round {r}: {f} differs, "
+                                             f"{name} vs card packed")
+                elif not np.array_equal(a[f], b[f]):
+                    raise AssertionError(f"round {r}: {f} differs, {name} "
+                                         "vs card packed")
+    for name, (trace, modes) in runs.items():
+        log(f"[stream-parity] {name:>28}: {len(trace)} rounds, variants "
+            f"{modes}")
+    two = runs["card stream, 2-chunk cache"][1]
+    four = runs["card stream, 4-chunk cache"][1]
+    if not (two["mixed"] and two["decoded_evictions"] and four["mixed"]
+            and four["all"] and four["decoded_hits"]
+            and four["decoded_evictions"]):
+        raise AssertionError(f"the small decoded caches did not force mixed "
+                             f"rounds, hits and evictions: {two}, {four}")
+    log(f"[stream-parity] integer state identical every round ({len(runs)} "
+        f"runs); float state bit for bit equal across the "
+        f"{len(runs) - 1} card runs")
+    return {k: dict(rounds=len(t), modes=m) for k, (t, m) in runs.items()}
+
+
+# --------------------------------------------------- stream deployment ----
+def write_disk_store(store, directory: str) -> ChunkStore:
+    """The deployment's chunks as a disk-backed store: one file per chunk
+    and a manifest with each chunk's CRC32."""
+    disk = ChunkStore.create("deployment", store.codec, directory=directory)
+    for j in range(store.num_chunks):
+        disk.append_chunk(store.chunk_bytes(j),
+                          num_tuples=int(store.chunk_sizes[j]))
+    disk.finalize()
+    return ChunkStore.open(directory, "deployment")
+
+
+def phase_stream_deployment(store, values, packed_run: dict) -> dict:
+    """The deployment's eight queries on the same arrivals, served from the
+    disk-backed store with residency="stream" and a 1 GiB decoded cache
+    (all 128 decoded chunks, 512 MiB, fit)."""
+    queries = deployment_queries(values)
+    arrivals = [at for _, at in poisson_workload(
+        queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
+    exact = {q.name: exact_answer(values, q) for q in queries}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        disk = write_disk_store(store, tmp)
+        log(f"[stream] {disk.num_chunks} chunk files "
+            f"({disk.num_tuples * disk.codec.record_bytes / 2**30:.2f} GiB) "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        cfg = EngineConfig(residency="stream",
+                           decoded_cache_bytes=DECODED_CACHE_BYTES, **ENGINE)
+        server = OLAWorkloadServer(disk, cfg,
+                                   options=ServerOptions(**OPTIONS),
+                                   device="cuda")
+        try:
+            for q, at in zip(queries, arrivals):
+                server.submit(q, arrival_t=at)
+            eng = server.engine
+            modes = {"none": 0, "mixed": 0, "all": 0}
+            feed = {"s": 0.0}
+            round_data, data_mode = eng.round_data, eng.data_mode
+
+            def timed_round_data(state):
+                t = time.perf_counter()
+                out = round_data(state)
+                feed["s"] += time.perf_counter() - t
+                return out
+
+            def counted_mode(data):
+                mode, data = data_mode(data)
+                modes[mode] += 1
+                return mode, data
+
+            eng.round_data, eng.data_mode = timed_round_data, counted_mode
+            reset_launches()
+            t0 = time.perf_counter()
+            results = server.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            pf = eng.pipeline.counters()
+        finally:
+            server.close()
+        peak = torch.cuda.max_memory_allocated()
+        with OLAWorkloadServer(disk, cfg, options=ServerOptions(**OPTIONS),
+                               device="cuda") as again:
+            for q, at in zip(queries, arrivals):
+                again.submit(q, arrival_t=at)
+            profile_rounds(again, PROFILE_ROUNDS, "stream")
+    if server.truncated or len(results) != len(queries):
+        raise AssertionError("stream server run truncated")
+    rounds = server.rounds
+    log(f"[stream] {'query':>16} {'plan':>14} {'estimate':>14} "
+        f"{'dev/eps':>7} {'rounds':>6} {'seen':>8} | packed: {'plan':>14} "
+        f"{'rounds':>6} {'seen':>8}")
+    failures, same_plans = [], True
+    for r, p, q in zip(results, packed_run["results"], queries):
+        ex = exact[q.name]
+        dev = abs(r.estimate - ex) / abs(ex)
+        if not (np.isfinite(r.estimate) and dev <= 3 * q.epsilon):
+            failures.append(q.name)
+        same_plans &= r.plan == p.plan
+        log(f"[stream] {r.name:>16} {r.plan:>14} {r.estimate:14.7g} "
+            f"{dev / q.epsilon:7.3f} {r.rounds_resident:6d} "
+            f"{r.tuples_seen:8d} | packed: {p.plan:>14} "
+            f"{p.rounds_resident:6d} {p.tuples_seen:8d}")
+    log(f"[stream] rounds {rounds} (packed {packed_run['rounds']}); "
+        f"variants {modes}; launches {launches}; decoded hits "
+        f"{pf['decoded_hits']}, fills {pf['decoded_fills']}, "
+        f"extract_tuples_avoided {pf['extract_tuples_avoided']}, chunk "
+        f"reads {pf['chunk_reads']}, bytes read {pf['bytes_read']}")
+    log(f"[stream] peak device memory {peak / 2**20:.1f} MiB "
+        f"(allocated before the run {before / 2**20:.1f} MiB) vs the packed "
+        f"run's {packed_run['peak'] / 2**20:.1f} MiB; peak host RSS "
+        f"{peak_host_rss_bytes() / 2**30:.2f} GiB")
+    log(f"[stream] mean server round {wall / rounds * 1e3:.3f} ms (packed "
+        f"{packed_run['wall_s'] / packed_run['rounds'] * 1e3:.3f} ms); mean "
+        f"round_data (claims + assemble + prefetch) "
+        f"{feed['s'] / rounds * 1e3:.3f} ms; wall {wall:.3f} s")
+    if failures:
+        raise AssertionError(f"stream estimates outside 3·eps: {failures}")
+    kernel_rounds = launches["slot_extract_stream"] + launches[
+        "slot_eval_decoded"]
+    if kernel_rounds != rounds + modes["mixed"] or sum(modes.values()) != \
+            rounds:
+        raise AssertionError(f"slab + decoded launches {kernel_rounds} != "
+                             f"rounds {rounds} + mixed {modes['mixed']}")
+    if launches["extract_parse"] != pf["decoded_fills"]:
+        raise AssertionError(f"extract_parse launches "
+                             f"{launches['extract_parse']} != decoded fills "
+                             f"{pf['decoded_fills']}")
+    if launches["slot_extract"] != 0:
+        raise AssertionError("the stream path launched the packed kernel")
+    if min(launches[k] for k in ("slot_extract_stream", "slot_eval_decoded",
+                                 "extract_parse")) == 0:
+        raise AssertionError(f"a kernel of the stream path never launched: "
+                             f"{launches}")
+    if peak >= STREAM_PEAK_LIMIT:
+        raise AssertionError(f"stream peak device memory {peak} >= "
+                             f"{STREAM_PEAK_LIMIT}")
+    if same_plans:
+        for r, p in zip(results, packed_run["results"]):
+            if (r.rounds_resident, r.tuples_seen, r.seeded_tuples,
+                    r.decision, r.estimate) != (
+                    p.rounds_resident, p.tuples_seen, p.seeded_tuples,
+                    p.decision, p.estimate):
+                raise AssertionError(f"{r.name}: stream outcome differs from "
+                                     "packed under the same plans")
+        if rounds != packed_run["rounds"]:
+            raise AssertionError("stream rounds differ from packed under "
+                                 "the same plans")
+        log("[stream] every plan as in the packed run: rounds, per-query "
+            "outcomes and estimates identical")
+    else:
+        log("[stream] plans differ from the packed run (the decoded cache "
+            "prices a cached scan cheaper): outcomes reported above")
+    return dict(rounds=rounds, modes=modes, launches=launches, peak=peak,
+                wall_s=wall, feed_s=feed["s"], counters=pf)
+
+
 # --------------------------------------------------------------- times ----
 def time_cuda(fn, iters: int) -> float:
     """Mean ms per call over ``iters`` calls, CUDA events, after warm-up."""
@@ -423,10 +831,10 @@ def kernel_bound_ms(w: int, b: int, c: int, s: int, return_cols: bool):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, iters: int, match: str):
-    """Mean device ms per call of the kernels whose name contains ``match``,
-    from a ``torch.profiler`` (CUPTI) trace of ``iters`` calls; None when
-    the trace holds no device time for them."""
+def device_ms(fn, iters: int, match: tuple):
+    """Mean device ms per call of the kernels whose name contains one of
+    ``match``, from a ``torch.profiler`` (CUPTI) trace of ``iters`` calls;
+    None when the trace holds no device time for them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -436,7 +844,7 @@ def device_ms(fn, iters: int, match: str):
             fn(i)
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if match in e.key)
+             if any(m in e.key for m in match))
     return us / 1e3 / iters if us > 0 else None
 
 
@@ -459,7 +867,8 @@ def phase_times(packed: torch.Tensor, sizes: np.ndarray, rungs: list,
 
         # device time of the two kernels, and the wall per call with the
         # wrapper's host work (checks, allocation, ctypes) included
-        per_rung[b] = device_ms(call, 200, "slot_extract")
+        per_rung[b] = device_ms(call, 200, ("slot_extract_blocks",
+                                            "reduce_partials"))
         per_call[b] = time_cuda(call, 200)
 
     def plain(i):
@@ -479,16 +888,116 @@ def phase_times(packed: torch.Tensor, sizes: np.ndarray, rungs: list,
                 share_source="device" if timed is per_rung else "call")
 
 
-def phase_profile(store, values, rounds: int = 200) -> None:
-    """Where a server round's time goes: the deployment's first ``rounds``
-    rounds again under ``torch.profiler`` — device busy share of the wall,
-    the kernels by device time, the host ops by self CPU time."""
-    from torch.profiler import ProfilerActivity, profile
+def bound(nbytes: float, ops_: float) -> tuple[float, str]:
+    """Least ms for work that moves ``nbytes`` and does ``ops_`` operations:
+    the larger of the two over the H100's HBM and float32 rates."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    queries = deployment_queries(values)
-    arrivals = [at for _, at in poisson_workload(
-        queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
-    server = run_server(store, queries, arrivals, "cuda")
+
+def slab_bound_ms(w: int, b: int, c: int, s: int, cap: int, decoded: bool):
+    """The slab kernels' bound: window rows (256-byte records, or C floats
+    decoded), indices, budgets, scan positions and plan read once, stats
+    and the (W, cap, C) cache rows written once; per row the parse (raw
+    only) and per slot 2C compares, C multiply-adds and 8 ops."""
+    row = c * 4 if decoded else c * FIELD_BYTES
+    nbytes = (w * b * row + w * b * 4 + 2 * w * 4 + 3 * s * c * 4
+              + 3 * s * 4 + w * s * 4 * 4 + w * cap * c * 4)
+    ops_ = w * b * ((0 if decoded else c * (14 * 2 + 3))
+                    + s * (2 * c + 2 * c + 8))
+    return bound(nbytes, ops_)
+
+
+def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
+    """Device and per-call times of the three slab-path kernels at the main
+    path's shapes, their bounds and their plain versions' times."""
+    rng = np.random.default_rng(17)
+    n, m_max, rec = packed.shape
+    c = rec // FIELD_BYTES
+    out = {}
+    for b in (8, 4096):
+        sets = []
+        for _ in range(16):
+            inp = list(kernel_inputs(packed, sizes, b, rng))
+            inp[3] = torch.full_like(inp[3], b)          # full budgets
+            slab, idx, b_eff, plan, mb = stream_inputs(inp)
+            w, r, _ = slab.shape
+            dec = extract_parse_cuda(slab.reshape(w * r, rec), c).reshape(
+                w, r, c)
+            sets.append((slab, dec, (idx, b_eff, *plan, mb)))
+
+        def raw(i, b=b, sets=sets):
+            slab, _, args = sets[i % 16]
+            return slot_extract_stream_cuda(slab, *args, cache_cap=CACHE_CAP)
+
+        def decoded(i, b=b, sets=sets):
+            _, dec, args = sets[i % 16]
+            return slot_eval_decoded_cuda(dec, *args, cache_cap=CACHE_CAP)
+
+        match = ("stream_blocks", "reduce_partials")
+        out[("slot_extract_stream", b)] = dict(
+            device_ms=device_ms(raw, 200, match), call_ms=time_cuda(raw, 200))
+        out[("slot_eval_decoded", b)] = dict(
+            device_ms=device_ms(decoded, 200, match),
+            call_ms=time_cuda(decoded, 200))
+        if b == 4096:
+            def plain_raw(i):
+                slab, _, (idx, be, co, lo, hi, isc, gate, wts, mb) = \
+                    sets[i % 16]
+                kref.slot_extract_stream_ref(slab, idx, be, co, lo, hi, isc,
+                                             gate, num_cols=c, weights=wts)
+                return kref.stream_cache_rows_ref(slab, idx, be, mb,
+                                                  CACHE_CAP, c)
+
+            def plain_dec(i):
+                _, dec, (idx, be, co, lo, hi, isc, gate, wts, mb) = \
+                    sets[i % 16]
+                kref.slot_eval_decoded_ref(dec, idx, be, co, lo, hi, isc,
+                                           gate, weights=wts)
+                return kref.window_cache_rows_ref(
+                    kref.gather_window(dec, idx), be, mb, CACHE_CAP)
+
+            out[("slot_extract_stream", b)]["plain_ms"] = time_cuda(
+                plain_raw, 20)
+            out[("slot_eval_decoded", b)]["plain_ms"] = time_cuda(
+                plain_dec, 20)
+        for name, dflag in (("slot_extract_stream", False),
+                            ("slot_eval_decoded", True)):
+            out[(name, b)]["bound"] = slab_bound_ms(4, b, c, 8, CACHE_CAP,
+                                                    dflag)
+        del sets
+    chunks = [packed[j, : int(sizes[j])].contiguous()
+              for j in rng.choice(n, size=16, replace=False)]
+
+    def parse(i):
+        return extract_parse_cuda(chunks[i % 16], c)
+
+    t = int(sizes[0])
+    out[("extract_parse", t)] = dict(
+        device_ms=device_ms(parse, 100, ("parse_rows",)),
+        call_ms=time_cuda(parse, 100),
+        plain_ms=time_cuda(lambda i: kref.parse_ascii_ref(chunks[i % 16], c),
+                           10),
+        bound=bound(t * rec + t * c * 4, t * c * (14 * 2 + 3)))
+    return out
+
+
+def profile_rounds(server, rounds: int, tag: str) -> None:
+    """Where a server round's time goes: ``rounds`` rounds of ``server``
+    under ``torch.profiler`` — device busy share of the wall, the kernels by
+    device time, the host ops by self CPU time, and the share of the wall
+    spent feeding the round its data (``round_data``: claim prediction,
+    slab assembly and copy, read-ahead hints)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    feed = server.engine.round_data
+
+    def traced_round_data(state):
+        with record_function("round_data"):
+            return feed(state)
+
+    server.engine.round_data = traced_round_data
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -497,21 +1006,38 @@ def phase_profile(store, values, rounds: int = 200) -> None:
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    log(f"[profile] {server.rounds} rounds under the profiler: wall "
+    # the round_data annotation also appears as a device-side range: it is
+    # a span, not device work, so it is left out of the busy time
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.key != "round_data"]
+    busy = sum(e.self_device_time_total for e in on_device)
+    feed_us = sum(e.cpu_time_total for e in events if e.key == "round_data"
+                  and e.device_type == torch.autograd.DeviceType.CPU)
+    log(f"[profile {tag}] {server.rounds} rounds under the profiler: wall "
         f"{wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-        f"({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
-    dev = sorted((e for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)[:6]
+        f"({100 * busy / wall_us:.1f}%), idle "
+        f"{100 - 100 * busy / wall_us:.1f}%; round_data "
+        f"{feed_us / 1e3:.1f} ms ({100 * feed_us / wall_us:.1f}% of the "
+        f"wall)")
+    dev = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
     for e in dev:
-        log(f"[profile] device {e.self_device_time_total / 1e3:9.2f} ms "
-            f"x{e.count:6d}  {e.key[:70]}")
+        log(f"[profile {tag}] device {e.self_device_time_total / 1e3:9.2f} "
+            f"ms x{e.count:6d}  {e.key[:70]}")
     host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:8]
     for e in host:
-        log(f"[profile] host   {e.self_cpu_time_total / 1e3:9.2f} ms "
+        log(f"[profile {tag}] host   {e.self_cpu_time_total / 1e3:9.2f} ms "
             f"x{e.count:6d}  {e.key[:70]}")
+
+
+def phase_profile(store, values, rounds: int = 200) -> None:
+    """The packed deployment's first ``rounds`` rounds under the
+    profiler (see :func:`profile_rounds`)."""
+    queries = deployment_queries(values)
+    arrivals = [at for _, at in poisson_workload(
+        queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
+    with run_server(store, queries, arrivals, "cuda") as server:
+        profile_rounds(server, rounds, "packed")
 
 
 # ---------------------------------------------------------------- main ----
@@ -542,14 +1068,20 @@ def main() -> int:
 
     packed, sizes = store.packed_device_view("cuda")
     checks = phase_kernel(packed, sizes)
+    stream_checks = phase_stream_kernels(packed, sizes)
     del packed
     srv = phase_server(store, values)
     srv_rungs, launches = srv["rungs"], srv["launches"]
     phase_parity()
+    phase_stream_parity()
     times = phase_times(srv["packed"], srv["sizes"], srv["rungs"],
                         srv["wall_s"])
+    stimes = phase_stream_times(srv["packed"], srv["sizes"])
+    packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s")}
     del srv
-    phase_profile(store, values)
+    torch.cuda.empty_cache()
+    dep = phase_stream_deployment(store, values, packed_run)
+    phase_profile(store, values, PROFILE_ROUNDS)
     del values
 
     def us(t):
@@ -569,7 +1101,26 @@ def main() -> int:
         f"{len(srv_rungs)} rounds; kernel share of round time "
         f"{100 * times['kernel_share']:.3f}% ({times['share_source']} time "
         f"per rung x rounds at each rung / server wall)")
+    for (name, b), v in stimes.items():
+        shape = (f"T={b} rows" if name == "extract_parse"
+                 else f"W=4 B={b} C=16 S=8 cap={CACHE_CAP}")
+        plain = v.get("plain_ms")
+        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
+            f"device time per launch (profiler); {us(v['call_ms'])} us per "
+            f"call with the wrapper (CUDA events); bound "
+            f"{v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain version "
+            f"{'not measured' if plain is None else us(plain)} us; "
+            f"{dep['launches'][name] / dep['rounds']:.4f} launches per "
+            f"stream-deployment round")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+
+    def timed(name, b):
+        v = stimes[(name, b)]
+        ms = v["device_ms"] if v["device_ms"] is not None else v["call_ms"]
+        return dict(ms=ms, plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                    bound_by=v["bound"][1], library_ms=None)
+
+    t_rows = int(store.chunk_sizes[0])
     kernels = [{
         "name": "slot_extract", "route": "cuda",
         "source": "src/repro_torch/csrc/slot_extract.cu",
@@ -581,6 +1132,32 @@ def main() -> int:
         "ms": times["ms"], "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "slot_extract_stream", "route": "cuda",
+        "source": "src/repro_torch/csrc/slot_extract_stream.cu",
+        "replaces": "src/repro/kernels/slot_extract.py:484",
+        "launches": dep["launches"]["slot_extract_stream"],
+        "max_abs_err": max(r["max_abs_err"] for r in stream_checks["stream"]),
+        "max_rel_err_sums": max(r["max_rel_err_sums"]
+                                for r in stream_checks["stream"]),
+        **timed("slot_extract_stream", 4096),
+    }, {
+        "name": "slot_eval_decoded", "route": "cuda",
+        "source": "src/repro_torch/csrc/slot_extract_stream.cu",
+        "replaces": "src/repro/kernels/slot_extract.py:514",
+        "launches": dep["launches"]["slot_eval_decoded"],
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in stream_checks["decoded"]),
+        "max_rel_err_sums": max(r["max_rel_err_sums"]
+                                for r in stream_checks["decoded"]),
+        **timed("slot_eval_decoded", 4096),
+    }, {
+        "name": "extract_parse", "route": "cuda",
+        "source": "src/repro_torch/csrc/extract_parse.cu",
+        "replaces": "src/repro/kernels/extract_parse.py:55",
+        "launches": dep["launches"]["extract_parse"],
+        "max_abs_err": max(r["max_abs_err"] for r in stream_checks["parse"]),
+        **timed("extract_parse", t_rows),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,11 +26,18 @@ into the program; ``stats.m`` is ``(N,)``) and the slot table (a dynamic
 :class:`~repro_torch.core.queries.SlotTable` round argument; ``stats.m`` is
 per-slot ``(S, N)``, the scan-level count lives in ``state.scan_m``).
 
-This package runs packed residency on one device.  Streaming residency, the
-decoded-chunk cache and GROUP BY raise ``NotImplementedError``; the grouped
-state arrays are carried zero-width so the state matches the reference's.
-PyTorch runs eagerly, so the reference's jitted round per
-``(b_static, decoded_mode)`` is a plain method call here.
+Raw data reaches the round in one of two residencies, on one device:
+``"packed"`` holds the whole store on the device as one ``(N, M_max, rec)``
+tensor; ``"stream"`` feeds each round a bounded ``(W, rows_max, rec)`` slab
+of the chunks its workers claim, through
+:class:`~repro_torch.data.pipeline.SlabPrefetcher`, optionally with the
+parse-once decoded-chunk cache (``decoded_cache_bytes``).  Both give the
+same statistics.  A read that exhausts its retries quarantines the chunk
+(:func:`quarantine_chunks`) and the round re-plans over the survivors.
+GROUP BY raises ``NotImplementedError``; the grouped state arrays are
+carried zero-width so the state matches the reference's.  PyTorch runs
+eagerly, so the reference's jitted round per ``(b_static, decoded_mode)``
+is a plain method call here.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ from repro_torch.core.queries import (
     linear_plan,
     slot_evaluate,
 )
+from repro_torch.data.faults import FaultError
+from repro_torch.data.pipeline import SlabPrefetcher
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.obs.trace import NULL_TRACER
@@ -96,7 +105,20 @@ class EngineConfig:
     # plain version for CPU tensors; linear+range plans, fixed-width ASCII,
     # f32 sums); "ref" keeps the decode_ref + evaluator composition
     extract_backend: str = "cuda"
+    # raw-data residency: "packed" keeps the whole store on the device as
+    # one (N, M_max, rec) tensor; "stream" feeds each round a bounded
+    # (W, rows_max, rec) slab through data/pipeline.SlabPrefetcher — device
+    # residency O(slab), READ overlapped with compute.  Same statistics.
     residency: str = "packed"
+    slab_row_tile: int = 256     # slab rows padded to a multiple of this
+    prefetch_lookahead: int = 8  # schedule chunks the reader thread runs ahead
+    # adapt the lookahead from the measured READ/round time ratio (a perf
+    # knob only; estimates are unaffected)
+    prefetch_adaptive: bool = False
+    # parse-once decoded-chunk cache byte budget (streaming residency only):
+    # each chunk's decoded (rows, C) f32 block is kept after its first
+    # extraction and later rounds feed the decoded-input kernel, skipping
+    # the parse.  Statistics and the modeled clock are the same on or off.
     decoded_cache_bytes: int = 0
     max_groups: int = 0
 
@@ -107,13 +129,14 @@ class EngineConfig:
             raise NotImplementedError(
                 f"extract_backend={self.extract_backend!r}: this package has "
                 "the 'cuda' fused kernel and the 'ref' composition")
-        if self.residency != "packed":
-            raise NotImplementedError(
-                "residency='stream' is not ported yet (packed only)")
-        if self.decoded_cache_bytes != 0:
-            raise NotImplementedError(
-                "the decoded-chunk cache needs streaming residency, which is "
-                "not ported yet")
+        if self.residency not in ("packed", "stream"):
+            raise ValueError(f"unknown residency {self.residency!r}")
+        if self.decoded_cache_bytes < 0:
+            raise ValueError("decoded_cache_bytes must be >= 0")
+        if self.decoded_cache_bytes != 0 and self.residency != "stream":
+            raise ValueError(
+                "decoded_cache_bytes requires residency='stream' (the cache "
+                "lives in the slab prefetcher)")
         if self.max_groups != 0:
             raise NotImplementedError("GROUP BY is not ported yet")
         if self.stats_dtype not in ("float32", "float64"):
@@ -366,15 +389,34 @@ class EngineProgram:
         return mask
 
     # ------------------------------------------------------------ round ----
-    def round_body(self, state: EngineState, data: torch.Tensor,
-                   speeds: torch.Tensor, b_static: int,
-                   coll: Optional[_Collectives] = None,
+    def round_body(self, state: EngineState, data, speeds: torch.Tensor,
+                   b_static: int, coll: Optional[_Collectives] = None,
                    slots: Optional[SlotTable] = None,
+                   decoded_mode: str = "none",
                    ) -> tuple[EngineState, RoundReport]:
-        """One engine round over the packed store ``data (N, M_max, rec)``.
+        """One engine round.  ``data`` is the raw byte source: the packed
+        store ``(N, M_max, rec)`` under ``residency="packed"``, or this
+        round's per-worker slab ``(W, rows_max, rec)`` under ``"stream"``
+        (worker w's chunk rows at ``data[w]``, assembled from
+        :meth:`plan_claims`, which the CLAIM below reproduces).
+
+        ``decoded_mode`` (streaming with the decoded-chunk cache) picks the
+        variant: ``"none"`` is the raw-slab round; otherwise ``data`` is the
+        prefetcher's ``(raw_slab, decoded_slab, is_decoded)`` triple —
+        ``"all"`` evaluates the decoded slab only, ``"mixed"`` splits the
+        budget between the raw and decoded kernels by the mask.  Every
+        variant gives the same statistics and modeled clock.
+
         With ``slots`` the query plane is the slot table: evaluation, ε
         targets, plan policies and HAVING verdicts come from its rows."""
         cfg = self.config
+        streaming = cfg.residency == "stream"
+        if decoded_mode not in ("none", "mixed", "all"):
+            raise ValueError(f"unknown decoded_mode {decoded_mode!r}")
+        if decoded_mode != "none":
+            if not streaming:
+                raise ValueError("decoded rounds exist only under streaming")
+            data, dec, is_dec = data
         coll = coll or _Collectives()
         n = self.n_chunks
         slot_mode = slots is not None
@@ -429,6 +471,7 @@ class EngineProgram:
                                      self.m_max)                 # (W, B)
         cap = cfg.cache_cap
         cols = None
+        cache_rows = None
         if self.fused:
             # gather + parse + slot eval + per-(worker, slot) partial sums
             # in one kernel; the decoded window is emitted only when the
@@ -444,15 +487,49 @@ class EngineProgram:
                 isc = self._plan_is_count
                 gate_v = torch.ones((q,), dtype=torch.float32, device=dev)
                 wts = torch.ones((q,), dtype=torch.float32, device=dev)
-            stats4, cols = kernel_ops.slot_extract(
-                data, j, idx, b_eff, coeffs, p_lo, p_hi, isc, gate_v,
-                weights=wts, return_cols=cap > 0)
+            if streaming:
+                # the slab kernels emit the synopsis-cache delta rows
+                # (W, cap, C) themselves when cap > 0
+                def stream(kernel, src, budgets):
+                    return kernel(src, idx, budgets, coeffs, p_lo, p_hi, isc,
+                                  gate_v, weights=wts, cache_cap=cap,
+                                  m_before=m_before)
+
+                if decoded_mode == "all":
+                    res = stream(kernel_ops.slot_eval_decoded, dec, b_eff)
+                elif decoded_mode == "mixed":
+                    # complementary budgets: a zero-budget worker adds exact
+                    # float zeros, so the two outputs sum to the one-kernel
+                    # result bit for bit
+                    b_raw = torch.where(is_dec, zero_i, b_eff)
+                    r_raw = stream(kernel_ops.slot_extract_stream, data, b_raw)
+                    r_dec = stream(kernel_ops.slot_eval_decoded, dec,
+                                   b_eff - b_raw)
+                    res = ((r_raw[0] + r_dec[0], r_raw[1] + r_dec[1])
+                           if cap > 0 else r_raw + r_dec)
+                else:
+                    res = stream(kernel_ops.slot_extract_stream, data, b_eff)
+                stats4, cache_rows = res if cap > 0 else (res, None)
+            else:
+                stats4, cols = kernel_ops.slot_extract(
+                    data, j, idx, b_eff, coeffs, p_lo, p_hi, isc, gate_v,
+                    weights=wts, return_cols=cap > 0)
             sum_x = stats4[..., 1].to(dtype).T                   # (Q|S, W)
             sum_xx = stats4[..., 2].to(dtype).T
             sum_p = stats4[..., 3].to(dtype).T
         else:
-            raw = data[j[:, None], idx]                          # (W, B, rec)
-            cols = self.codec.decode_ref(raw)                    # (W, B, C)
+            w_ids = torch.arange(idx.shape[0], device=dev)[:, None]
+            if decoded_mode == "all":
+                cols = dec[w_ids, idx.long()]                    # (W, B, C)
+            else:
+                src = w_ids if streaming else j[:, None]
+                raw = data[src, idx.long()]                      # (W, B, rec)
+                cols = self.codec.decode_ref(raw)                # (W, B, C)
+                if decoded_mode == "mixed":
+                    # the decode is row-elementwise: decoded-slab gathers
+                    # equal gather-then-decode bit for bit
+                    cols = torch.where(is_dec[:, None, None],
+                                       dec[w_ids, idx.long()], cols)
             if slot_mode:
                 x, pr = slot_evaluate(slots, cols)               # (S, W, B)
                 gate = slots.active.to(dtype)[:, None, None]
@@ -511,7 +588,12 @@ class EngineProgram:
 
         # extracted-tuple cache for synopsis construction: row r of chunk j
         # holds the r-th tuple of its permutation window (append-only)
-        if cap > 0:
+        if cache_rows is not None:
+            # the slab kernels' delta rows are zero off-window, so inactive
+            # workers (and chunk ids they repeat) add nothing
+            cache = state.cache + torch.zeros_like(state.cache).index_add_(
+                0, j, cache_rows)
+        elif cap > 0:
             rows = m_before[:, None] + k[None, :]                # (W, B)
             writable = valid & active[:, None] & (rows < cap)
             wi, ki = torch.nonzero(writable, as_tuple=True)
@@ -779,32 +861,143 @@ def slot_stats_write(stats: BiLevelStats, s: int, seed: Optional[dict],
     return stats._replace(m=m, ysum=ysum, ysq=ysq, psum=psum), seeded
 
 
-class _PackedResidency:
-    """Host-side raw-data feed: the whole store resident on the engine's
-    device as one ``(N, M_max, rec)`` uint8 tensor."""
+def quarantine_chunks(state: EngineState, chunk_ids) -> EngineState:
+    """Host-side quarantine write (between rounds): mark chunks quarantined
+    and closed and zero their statistics columns.
 
+    With the columns zeroed and ESTIMATE substituting the surviving chunk
+    count and tuple total, the masked N-chunk estimator sums are bit for
+    bit those of a fresh scan over the survivors (adding float zeros is
+    exact).  A worker holding a quarantined chunk extracts zero tuples next
+    round and releases it, so the scan never stalls."""
+    ids = sorted({int(c) for c in chunk_ids})
+    if not ids:
+        return state
+    q = state.quarantined.cpu().numpy()
+    ids = np.asarray([j for j in ids if not q[j]], np.int64)
+    if ids.size == 0:
+        return state
+    dev = state.quarantined.device
+    sel = torch.as_tensor(ids, device=dev)
+
+    def zero_cols(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        t[..., sel] = 0
+        return t
+
+    def mark(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        t[sel] = True
+        return t
+
+    stats = state.stats
+    return state._replace(
+        quarantined=mark(state.quarantined), closed=mark(state.closed),
+        cached_m=zero_cols(state.cached_m),
+        stats=stats._replace(m=zero_cols(stats.m),
+                             ysum=zero_cols(stats.ysum),
+                             ysq=zero_cols(stats.ysq),
+                             psum=zero_cols(stats.psum)))
+
+
+class _ResidencyMixin:
+    """Host-side raw-data feed shared by the engines.
+
+    ``round_data(state)`` is what callers pass as the round step's ``data``:
+    the resident packed store under ``residency="packed"``, or a freshly
+    assembled bounded slab under ``"stream"`` (claim prediction, prefetcher
+    assemble, read-ahead hint for the next schedule positions).  It returns
+    ``(state, data)``: streaming assembly is where permanent read failures
+    surface, and each one quarantines the lost chunk in the returned state
+    instead of raising into the caller's round loop."""
+
+    pipeline = None
     tracer = NULL_TRACER
 
     def set_tracer(self, tracer) -> None:
         self.tracer = tracer
+        if self.pipeline is not None:
+            self.pipeline.tracer = tracer
 
-    def _init_residency(self, store) -> np.ndarray:
+    def _init_residency(self, store, config: EngineConfig) -> np.ndarray:
+        """Set up ``self.packed``/``self.pipeline`` for the configured
+        residency on ``self.device``; returns the chunk-size vector."""
         self.quarantine_log: list[int] = []
+        if config.residency == "stream":
+            self.packed = None
+            self.pipeline = SlabPrefetcher(
+                store, num_workers=config.num_workers,
+                row_multiple=config.slab_row_tile,
+                lookahead=config.prefetch_lookahead, device=self.device,
+                adaptive=config.prefetch_adaptive,
+                decoded_cache_bytes=config.decoded_cache_bytes)
+            return store.chunk_sizes
         self.packed, sizes = store.packed_device_view(self.device)
         return sizes
 
     def round_data(self, state: EngineState) -> tuple[EngineState, object]:
-        return state, self.packed
+        if self.pipeline is None:
+            return state, self.packed
+        with self.tracer.span("assemble"):
+            while True:
+                j, active, new_head = self.program.plan_claims(state)
+                qn = state.quarantined.cpu().numpy()
+                # never read a quarantined chunk: its worker still claims it
+                # but extracts b_eff == 0 from a zero slab row
+                active = np.asarray(active) & ~qn[np.asarray(j)]
+                try:
+                    slab = self.pipeline.assemble(j, active)
+                except FaultError as e:
+                    if e.chunk_id is None:
+                        raise
+                    # retries exhausted, CRC mismatch or permanent loss:
+                    # drop the chunk from the population (and from the
+                    # decoded cache: its bytes are no longer trusted) and
+                    # re-plan.  Each pass quarantines one more chunk, so
+                    # the loop ends within the chunk count.
+                    state = quarantine_chunks(state, [e.chunk_id])
+                    self.drop_decoded_chunks([e.chunk_id])
+                    self.quarantine_log.append(int(e.chunk_id))
+                    continue
+                # read-ahead follows the state's schedule; quarantined
+                # chunks are skipped
+                nxt = state.schedule.cpu().numpy()[
+                    new_head:new_head + self.pipeline.lookahead]
+                self.pipeline.prefetch(int(p) for p in nxt if not qn[p])
+                return state, slab
+
+    def drop_decoded_chunks(self, chunk_ids) -> int:
+        """Evict chunks from the prefetcher's decoded cache (quarantine /
+        invalidation hook); returns the number actually dropped."""
+        if self.pipeline is None or self.pipeline.decoded is None:
+            return 0
+        return self.pipeline.drop_decoded(chunk_ids)
+
+    def decoded_fraction(self) -> float:
+        """Fraction of the store's tuples with decoded blocks cached (the
+        Eq. (4) CPU-cost discount input); 0.0 without a decoded cache."""
+        if self.pipeline is None:
+            return 0.0
+        return self.pipeline.decoded_fraction()
 
     @staticmethod
     def data_mode(data) -> tuple[str, object]:
+        """Split :meth:`round_data`'s result into the round variant and the
+        round's data argument: the prefetcher's decoded 4-tuple carries a
+        host-side all-decoded flag that picks ``"all"`` over ``"mixed"``;
+        anything else is the raw ``"none"`` round."""
+        if isinstance(data, tuple) and len(data) == 4:
+            raw, dec_slab, mask, all_dec = data
+            return ("all" if all_dec else "mixed"), (raw, dec_slab, mask)
         return "none", data
 
     def close(self) -> None:
-        pass
+        """Stop the prefetcher's reader thread (streaming); idempotent."""
+        if self.pipeline is not None:
+            self.pipeline.close()
 
 
-class OLAEngine(_PackedResidency):
+class OLAEngine(_ResidencyMixin):
     """Host-facing single-device engine for a frozen query list."""
 
     def __init__(self, store, queries: Sequence[Query], config: EngineConfig,
@@ -812,7 +1005,7 @@ class OLAEngine(_PackedResidency):
         self.device = resolve_device(device)
         self.store = store
         self.config = config
-        sizes = self._init_residency(store)
+        sizes = self._init_residency(store, config)
         self.program = EngineProgram(
             codec=store.codec, queries=queries, config=config,
             n_chunks=store.num_chunks, m_max=store.max_chunk_tuples,
@@ -832,13 +1025,13 @@ class OLAEngine(_PackedResidency):
         return self.program.init_state(synopsis_seed)
 
     def round_fn(self, b_static: int, decoded_mode: str = "none"):
-        """The round step at budget ``b_static``: ``step(state, packed,
+        """The round step at budget ``b_static`` for the round variant
+        ``decoded_mode`` (see :meth:`data_mode`): ``step(state, data,
         speeds) -> (state, report)``."""
-        if decoded_mode != "none":
-            raise NotImplementedError("decoded rounds need streaming residency")
 
-        def step(state, packed, speeds):
-            return self.program.round_body(state, packed, speeds, b_static)
+        def step(state, data, speeds):
+            return self.program.round_body(state, data, speeds, b_static,
+                                           decoded_mode=decoded_mode)
 
         return step
 
@@ -865,7 +1058,7 @@ class OLAEngine(_PackedResidency):
         return state, history
 
 
-class SlotOLAEngine(_PackedResidency):
+class SlotOLAEngine(_ResidencyMixin):
     """Host-facing engine whose query plane is a dynamic slot table:
     admitting, retiring or re-targeting a query is a host-side row write
     between rounds.  The workload server
@@ -879,7 +1072,7 @@ class SlotOLAEngine(_PackedResidency):
         self.device = resolve_device(device)
         self.store = store
         self.config = config
-        sizes = self._init_residency(store)
+        sizes = self._init_residency(store, config)
         self.program = EngineProgram(
             codec=store.codec, config=config, n_chunks=store.num_chunks,
             m_max=store.max_chunk_tuples, chunk_sizes=sizes,
@@ -900,14 +1093,14 @@ class SlotOLAEngine(_PackedResidency):
         return self.program.init_state()
 
     def round_fn(self, b_static: int, decoded_mode: str = "none"):
-        """The round step at budget ``b_static``: ``step(state, table,
-        packed, speeds) -> (state, report)``."""
-        if decoded_mode != "none":
-            raise NotImplementedError("decoded rounds need streaming residency")
+        """The round step at budget ``b_static`` for the round variant
+        ``decoded_mode`` (see :meth:`data_mode`): ``step(state, table,
+        data, speeds) -> (state, report)``."""
 
-        def step(state, table, packed, speeds):
-            return self.program.round_body(state, packed, speeds, b_static,
-                                           slots=table)
+        def step(state, table, data, speeds):
+            return self.program.round_body(state, data, speeds, b_static,
+                                           slots=table,
+                                           decoded_mode=decoded_mode)
 
         return step
 

@@ -127,6 +127,16 @@ class BiLevelSynopsis:
                     start=(ch.start + drop) % max(int(self.chunk_sizes[j]), 1),
                     values=ch.values[drop:])
 
+    def drop_chunks(self, chunk_ids) -> int:
+        """Forget windows over quarantined chunks: a lost or corrupt chunk
+        is out of the surviving population, so its cached tuples must stop
+        seeding estimates.  Returns the number of windows dropped."""
+        n = 0
+        for j in chunk_ids:
+            if self.chunks.pop(int(j), None) is not None:
+                n += 1
+        return n
+
     # ---------------------------------------------------------- estimation --
     def within_variances(self, state) -> np.ndarray:
         """Per-chunk within-variance proxy from engine stats (allocation key):

@@ -7,8 +7,14 @@ Chunks live in memory as numpy uint8 arrays, or on disk as
 tuple count, byte count, path and CRC32 — the same manifest the reference
 writes, so a store written by either package opens in the other.
 
-The engine holds the store on its device as one padded
-``(N, M_max, record_bytes)`` uint8 tensor (:meth:`packed_device_view`).
+Two device-facing residencies (``EngineConfig.residency``):
+
+* ``"packed"`` — :meth:`packed_device_view`: the whole store on the engine's
+  device as one padded ``(N, M_max, record_bytes)`` uint8 tensor;
+* ``"stream"`` — the engine pulls bounded per-round ``(W, rows_max, rec)``
+  slabs through :class:`repro_torch.data.pipeline.SlabPrefetcher`: chunks
+  are read (and, when disk-backed, evicted) on the fly, so host and device
+  residency are O(slab), not O(dataset).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ class ChunkStore:
         self.meta: list[ChunkMeta] = []
         self._chunks: list[Optional[np.ndarray]] = []
         self._finalized = False
+        self._content_version = 0
 
     # ------------------------------------------------------------- create --
     @classmethod
@@ -68,6 +75,7 @@ class ChunkStore:
         else:
             self.meta.append(ChunkMeta(num_tuples, raw.nbytes, None, crc))
             self._chunks.append(raw)
+        self._content_version += 1
 
     def finalize(self) -> None:
         self._finalized = True
@@ -100,6 +108,19 @@ class ChunkStore:
 
     # -------------------------------------------------------------- access --
     @property
+    def content_version(self) -> int:
+        """Monotone counter over the store's raw content: bumped per
+        ingested chunk and by :meth:`mark_content_changed`.  Caches derived
+        from the bytes (the prefetcher's decoded-chunk cache) pin the
+        version they were built over and clear on a mismatch."""
+        return self._content_version
+
+    def mark_content_changed(self) -> None:
+        """Signal an out-of-band change of the raw bytes (a re-ingest, an
+        external writer): bumps :attr:`content_version`."""
+        self._content_version += 1
+
+    @property
     def num_chunks(self) -> int:
         return len(self.meta)
 
@@ -130,6 +151,31 @@ class ChunkStore:
             self.verify_chunk(j, raw)
         return raw
 
+    def read_chunk_into(self, j: int, out: np.ndarray) -> np.ndarray:
+        """READ one chunk into ``out`` (C-contiguous uint8, at least
+        ``(num_tuples, record_bytes)``); returns the filled view
+        ``out[:num_tuples]``.  A disk-backed chunk is ``readinto()`` the
+        buffer directly, with no staging copy, then CRC-checked; short
+        reads and mismatches raise :class:`CorruptChunkError` as in
+        :meth:`chunk_bytes`.  Store wrappers (``FaultInjector``) intercept
+        :meth:`chunk_bytes` only, so the prefetcher takes this path only
+        when the store's own class provides it."""
+        m = self.meta[j]
+        view = out[: m.num_tuples]
+        raw = self._chunks[j]
+        if raw is not None:
+            np.copyto(view, raw)
+            return view
+        nbytes = m.num_tuples * self.codec.record_bytes
+        with open(m.path, "rb") as f:
+            got = f.readinto(memoryview(view.reshape(-1)[:nbytes]))
+        if got != nbytes:
+            raise CorruptChunkError(
+                f"chunk {j}: short read ({got} bytes, expected {nbytes})",
+                chunk_id=j)
+        self.verify_chunk(j, view)
+        return view
+
     def verify_chunk(self, j: int, raw: np.ndarray) -> None:
         """Check ``raw`` against chunk ``j``'s manifest CRC32 (no-op for
         manifests without checksums)."""
@@ -142,6 +188,16 @@ class ChunkStore:
                 f"chunk {j}: CRC32 mismatch (manifest {crc:#010x}, "
                 f"read {got:#010x})", chunk_id=j)
 
+    def evict(self, j: int) -> None:
+        """Drop a resident chunk (meaningful for disk-backed stores only)."""
+        if self.directory is not None:
+            self._chunks[j] = None
+
+    def cache(self, j: int) -> None:
+        """Keep chunk ``j`` resident (a disk-backed store reads it once)."""
+        if self._chunks[j] is None:
+            self._chunks[j] = self.chunk_bytes(j)
+
     def packed_device_view(self, device) -> tuple[torch.Tensor, np.ndarray]:
         """Padded ``(N, M_max, record_bytes)`` uint8 tensor on ``device`` +
         the ``(N,)`` sizes.  Padding rows are zero; the engine masks by
@@ -151,6 +207,8 @@ class ChunkStore:
         for j in range(n):
             raw = self.chunk_bytes(j)
             out[j, : raw.shape[0]] = torch.from_numpy(raw).to(device)
+            # a disk-backed store must not end up resident twice
+            self.evict(j)
         return out, self.chunk_sizes
 
     def decode_all(self) -> np.ndarray:

@@ -4,8 +4,8 @@ Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds, not minutes).  Libraries land in ``build/repro_torch/``
 at the root of the checkout (``$REPRO_TORCH_BUILD_DIR`` overrides it), named
-by a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.  Nothing is built at import: the first
+by a hash of the source, the headers it includes and the flags, so an edited
+source or header rebuilds and an unchanged one is loaded as it is.  Nothing is built at import: the first
 call that needs a kernel builds it, and :func:`build_all` builds every
 source at once, one ``nvcc`` per source, all started together.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -48,9 +49,32 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc (PATH or $CUDA_HOME/bin)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _closure(path: Path, seen: dict) -> None:
+    """``path`` and, recursively, every file it includes with ``#include
+    "..."`` (resolved beside the including file), into ``seen``."""
+    if path in seen:
+        return
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in _INCLUDE.findall(text):
+        dep = path.parent / inc.decode()
+        if not dep.exists():
+            raise FileNotFoundError(f"{path.name} includes missing {dep}")
+        _closure(dep, seen)
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library path of ``csrc/<name>.cu``: named by a hash of the source,
+    every header it includes, and the flags, so editing any of them
+    rebuilds."""
+    files: dict = {}
+    _closure(CSRC / f"{name}.cu", files)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(files):
+        h.update(path.name.encode() + b"\0" + files[path])
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -11,7 +11,41 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.extract_parse import extract_parse_cuda
 from repro_torch.kernels.slot_extract import slot_extract_cuda
+from repro_torch.kernels.slot_extract_stream import (
+    slot_eval_decoded_cuda,
+    slot_extract_stream_cuda,
+)
+
+
+def _as(dev, dtype):
+    def cast(t):
+        return torch.as_tensor(t, device=dev).to(dtype).contiguous()
+    return cast
+
+
+def _plan(dev, coeffs, lo, hi, is_count, gate, weights):
+    f32 = _as(dev, torch.float32)
+    coeffs, lo, hi, is_count, gate = (f32(a) for a in
+                                      (coeffs, lo, hi, is_count, gate))
+    weights = (torch.ones((coeffs.shape[0],), dtype=torch.float32, device=dev)
+               if weights is None else f32(weights))
+    return coeffs, lo, hi, is_count, gate, weights
+
+
+def _unsupported(name, dev):
+    return ValueError(f"{name} runs on CUDA or the CPU, not {dev}")
+
+
+def extract_parse(raw: torch.Tensor, num_cols: int) -> torch.Tensor:
+    """(T, rec_bytes) uint8 fixed-width ASCII -> (T, C) f32."""
+    dev = raw.device
+    if dev.type == "cuda":
+        return extract_parse_cuda(raw.contiguous(), num_cols)
+    if dev.type == "cpu":
+        return _ref.parse_ascii_ref(raw, num_cols)
+    raise _unsupported("extract_parse", dev)
 
 
 def slot_extract(packed: torch.Tensor, jw, idx, b_eff, coeffs, lo, hi,
@@ -22,18 +56,10 @@ def slot_extract(packed: torch.Tensor, jw, idx, b_eff, coeffs, lo, hi,
     b_eff (W,), coeffs/lo/hi (S, C), is_count/gate/weights (S,) ->
     (stats (W, S, 4) = (m, Σx, Σx², Σp), cols (W, B, C) | None)."""
     dev = packed.device
-
-    def i32(t):
-        return torch.as_tensor(t, device=dev).to(torch.int32).contiguous()
-
-    def f32(t):
-        return torch.as_tensor(t, device=dev).to(torch.float32).contiguous()
-
+    i32 = _as(dev, torch.int32)
     jw, idx, b_eff = i32(jw), i32(idx), i32(b_eff)
-    coeffs, lo, hi, is_count, gate = (f32(a) for a in
-                                      (coeffs, lo, hi, is_count, gate))
-    weights = (torch.ones((coeffs.shape[0],), dtype=torch.float32, device=dev)
-               if weights is None else f32(weights))
+    coeffs, lo, hi, is_count, gate, weights = _plan(
+        dev, coeffs, lo, hi, is_count, gate, weights)
     if dev.type == "cuda":
         return slot_extract_cuda(packed, jw, idx, b_eff, coeffs, lo, hi,
                                  is_count, gate, weights,
@@ -43,4 +69,60 @@ def slot_extract(packed: torch.Tensor, jw, idx, b_eff, coeffs, lo, hi,
                                      is_count, gate,
                                      num_cols=int(coeffs.shape[1]),
                                      return_cols=return_cols, weights=weights)
-    raise ValueError(f"slot_extract runs on CUDA or the CPU, not {dev}")
+    raise _unsupported("slot_extract", dev)
+
+
+def _stream(decoded: bool, src, idx, b_eff, coeffs, lo, hi, is_count, gate,
+            weights, cache_cap: int, m_before):
+    dev = src.device
+    i32 = _as(dev, torch.int32)
+    idx, b_eff = i32(idx), i32(b_eff)
+    m_before = (torch.zeros((idx.shape[0],), dtype=torch.int32, device=dev)
+                if m_before is None else i32(m_before))
+    coeffs, lo, hi, is_count, gate, weights = _plan(
+        dev, coeffs, lo, hi, is_count, gate, weights)
+    if dev.type == "cuda":
+        kernel = slot_eval_decoded_cuda if decoded else slot_extract_stream_cuda
+        return kernel(src.contiguous(), idx, b_eff, coeffs, lo, hi, is_count,
+                      gate, weights, m_before, cache_cap=cache_cap)
+    if dev.type != "cpu":
+        raise _unsupported("slot_eval_decoded" if decoded
+                           else "slot_extract_stream", dev)
+    if decoded:
+        stats = _ref.slot_eval_decoded_ref(src, idx, b_eff, coeffs, lo, hi,
+                                           is_count, gate, weights=weights)
+        if cache_cap > 0:
+            return stats, _ref.window_cache_rows_ref(
+                _ref.gather_window(src, idx), b_eff, m_before, cache_cap)
+        return stats
+    c = int(coeffs.shape[1])
+    stats = _ref.slot_extract_stream_ref(src, idx, b_eff, coeffs, lo, hi,
+                                         is_count, gate, num_cols=c,
+                                         weights=weights)
+    if cache_cap > 0:
+        return stats, _ref.stream_cache_rows_ref(src, idx, b_eff, m_before,
+                                                 cache_cap, c)
+    return stats
+
+
+def slot_extract_stream(slab: torch.Tensor, idx, b_eff, coeffs, lo, hi,
+                        is_count, gate, weights=None, cache_cap: int = 0,
+                        m_before=None):
+    """Round extraction from the round's per-worker slab (streaming
+    residency): slab (W, R, rec) uint8 with worker w's chunk rows at
+    ``slab[w]``, idx (W, B) window rows, b_eff (W,) -> stats (W, S, 4).
+
+    ``cache_cap > 0`` also returns the synopsis-cache delta rows
+    ``(W, cache_cap, C)`` (window position k at row ``m_before[w] + k``,
+    zeros elsewhere): ``(stats, cache_rows)``."""
+    return _stream(False, slab, idx, b_eff, coeffs, lo, hi, is_count, gate,
+                   weights, cache_cap, m_before)
+
+
+def slot_eval_decoded(dec: torch.Tensor, idx, b_eff, coeffs, lo, hi,
+                      is_count, gate, weights=None, cache_cap: int = 0,
+                      m_before=None):
+    """The parse-once fast path: as :func:`slot_extract_stream` from an
+    already decoded slab ``dec (W, R, C)`` float32 — no tokenize/parse."""
+    return _stream(True, dec, idx, b_eff, coeffs, lo, hi, is_count, gate,
+                   weights, cache_cap, m_before)

@@ -80,3 +80,61 @@ def slot_extract_ref(packed: torch.Tensor, jw: torch.Tensor, idx: torch.Tensor,
     stats = _slot_stats_from_cols(cols, b_eff, coeffs, lo, hi, is_count, gate,
                                   weights)
     return stats, (cols if return_cols else None)
+
+
+def slot_extract_stream_ref(slab: torch.Tensor, idx: torch.Tensor,
+                            b_eff: torch.Tensor, coeffs, lo, hi, is_count,
+                            gate, num_cols: int,
+                            weights=None) -> torch.Tensor:
+    """Slab-streaming round extraction, plain version of
+    ``csrc/slot_extract_stream.cu`` (raw): :func:`slot_extract_ref` with the
+    round's per-worker slab ``(W, R, rec)`` as the source — worker w's rows
+    at ``slab[w]``, no chunk-id indirection -> stats (W, S, 4)."""
+    w = idx.shape[0]
+    jw = torch.arange(w, dtype=torch.int32, device=slab.device)
+    stats, _ = slot_extract_ref(slab, jw, idx, b_eff, coeffs, lo, hi,
+                                is_count, gate, num_cols=num_cols,
+                                weights=weights)
+    return stats
+
+
+def gather_window(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather worker w's window rows ``src[w, idx[w]]`` -> (W, B, ...)."""
+    w = idx.shape[0]
+    return src[torch.arange(w, device=src.device)[:, None], idx.long()]
+
+
+def slot_eval_decoded_ref(dec: torch.Tensor, idx: torch.Tensor,
+                          b_eff: torch.Tensor, coeffs, lo, hi, is_count, gate,
+                          weights=None) -> torch.Tensor:
+    """Decoded-input round extraction, plain version of
+    ``csrc/slot_extract_stream.cu`` (decoded): worker w's already decoded
+    rows at ``dec (W, R, C)[w]`` go straight to slot evaluation ->
+    stats (W, S, 4)."""
+    return _slot_stats_from_cols(gather_window(dec, idx), b_eff, coeffs, lo,
+                                 hi, is_count, gate, weights)
+
+
+def window_cache_rows_ref(cols: torch.Tensor, b_eff: torch.Tensor,
+                          m_before: torch.Tensor,
+                          cache_cap: int) -> torch.Tensor:
+    """Synopsis-cache delta rows from a decoded window: cols (W, B, C),
+    b_eff (W,), m_before (W,) scan positions -> (W, cache_cap, C) where row
+    ``r`` holds ``cols[w, r - m_before[w]]`` when that window position
+    exists (``0 <= r - m_before < b_eff``) and zeros otherwise."""
+    b = cols.shape[1]
+    k = (torch.arange(cache_cap, dtype=torch.int32, device=cols.device)[None]
+         - m_before.to(torch.int32)[:, None])                    # (W, cap)
+    valid = (k >= 0) & (k < b_eff.to(torch.int32)[:, None])
+    rows = torch.take_along_dim(
+        cols, torch.clamp(k, 0, b - 1).long()[..., None], dim=1)
+    return rows * valid[..., None].to(cols.dtype)
+
+
+def stream_cache_rows_ref(slab: torch.Tensor, idx: torch.Tensor,
+                          b_eff: torch.Tensor, m_before: torch.Tensor,
+                          cache_cap: int, num_cols: int) -> torch.Tensor:
+    """Raw-slab version of the in-kernel cache emission: gather + parse the
+    window, then select the cache rows (:func:`window_cache_rows_ref`)."""
+    cols = parse_ascii_ref(gather_window(slab, idx), num_cols)
+    return window_cache_rows_ref(cols, b_eff, m_before, cache_cap)

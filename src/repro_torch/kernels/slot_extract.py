@@ -46,6 +46,36 @@ def _check(t: torch.Tensor, name: str, dtype, dim: int, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_window(idx, per_worker: dict, device) -> tuple[int, int]:
+    """idx (W, B) and the (W,) int32 vectors in ``per_worker`` -> (W, B)."""
+    _check(idx, "idx", torch.int32, 2, device)
+    w, b = idx.shape
+    for name, t in per_worker.items():
+        _check(t, name, torch.int32, 1, device)
+        if t.shape[0] != w:
+            raise ValueError(f"{name} has {t.shape[0]} workers, idx has {w}")
+    return w, b
+
+
+def _check_plan(coeffs, lo, hi, is_count, gate, weights,
+                device) -> tuple[int, int]:
+    """The slot plan: coeffs/lo/hi (S, C), is_count/gate/weights (S,)
+    float32 -> (S, C)."""
+    _check(coeffs, "coeffs", torch.float32, 2, device)
+    s, c = coeffs.shape
+    for name, t in (("lo", lo), ("hi", hi)):
+        _check(t, name, torch.float32, 2, device)
+        if tuple(t.shape) != (s, c):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {(s, c)}")
+    for name, t in (("is_count", is_count), ("gate", gate),
+                    ("weights", weights)):
+        _check(t, name, torch.float32, 1, device)
+        if t.shape[0] != s:
+            raise ValueError(f"{name} has {t.shape[0]} slots, expected {s}")
+    return s, c
+
+
 def slot_extract_cuda(packed: torch.Tensor, jw: torch.Tensor,
                       idx: torch.Tensor, b_eff: torch.Tensor,
                       coeffs: torch.Tensor, lo: torch.Tensor,
@@ -61,25 +91,10 @@ def slot_extract_cuda(packed: torch.Tensor, jw: torch.Tensor,
         raise ValueError(f"slot_extract_cuda needs CUDA tensors, got {dev}")
     _check(packed, "packed", torch.uint8, 3, dev)
     n, m_max, rec = packed.shape
-    s, c = coeffs.shape
+    s, c = _check_plan(coeffs, lo, hi, is_count, gate, weights, dev)
     if rec != c * FIELD_BYTES:
         raise ValueError(f"record width {rec} != {FIELD_BYTES} x {c} columns")
-    _check(idx, "idx", torch.int32, 2, dev)
-    w, b = idx.shape
-    for name, t in (("jw", jw), ("b_eff", b_eff)):
-        _check(t, name, torch.int32, 1, dev)
-        if t.shape[0] != w:
-            raise ValueError(f"{name} has {t.shape[0]} workers, idx has {w}")
-    for name, t in (("coeffs", coeffs), ("lo", lo), ("hi", hi)):
-        _check(t, name, torch.float32, 2, dev)
-        if tuple(t.shape) != (s, c):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {(s, c)}")
-    for name, t in (("is_count", is_count), ("gate", gate),
-                    ("weights", weights)):
-        _check(t, name, torch.float32, 1, dev)
-        if t.shape[0] != s:
-            raise ValueError(f"{name} has {t.shape[0]} slots, expected {s}")
+    w, b = _check_window(idx, {"jw": jw, "b_eff": b_eff}, dev)
     if w == 0 or b == 0 or s == 0:
         raise ValueError("slot_extract_cuda needs W, B and S >= 1")
     lib = _lib()

@@ -17,9 +17,13 @@ shared scan of the raw table:
 * **per-query plan selection** — :func:`select_plan` picks a strategy per
   admitted query from the Eq. (4) cost terms.
 
-This package serves the unscheduled path on one device with packed
-residency.  The SLO scheduler, the rollup tier, multi-device meshes and
-injected engines raise ``NotImplementedError`` until their slices land.
+This package serves the unscheduled path on one device, with packed or
+streaming residency (``EngineConfig.residency``; the decoded-chunk cache
+with ``decoded_cache_bytes``).  A chunk whose reads fail for good is
+quarantined: the answers of every query live at or after that moment
+describe the surviving population and are flagged ``degraded``.  The SLO
+scheduler, the rollup tier, multi-device meshes and injected engines raise
+``NotImplementedError`` until their slices land.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from repro_torch.core.engine import (
     IDLE,
     EngineConfig,
     SlotOLAEngine,
+    quarantine_chunks,
     slot_stats_write,
 )
 from repro_torch.core.queries import (
@@ -147,6 +152,14 @@ class WorkloadResult:
                                     # tuple (no synopsis seed): estimate NaN
     sched_outcome: str = "admitted"  # "admitted" or "queued" (waited for one)
     queue_wait: float = 0.0         # t_admit - t_submit (modeled s)
+    # degraded-answer semantics: the estimate speaks for the surviving
+    # population because chunks were quarantined (lost or irrecoverably
+    # corrupt) before the query completed; ``chunks_quarantined`` is the
+    # count at that moment and ``read_retries`` the retried chunk reads
+    # while the query was resident (both 0 on a healthy scan)
+    degraded: bool = False
+    chunks_quarantined: int = 0
+    read_retries: int = 0
     explain: Optional[ExplainRecord] = dataclasses.field(
         default=None, compare=False, repr=False)
 
@@ -215,6 +228,12 @@ class OLAWorkloadServer:
         self.truncated = False
         self._next_qid = 0
         self._weights = np.ones(max_slots, np.float32)
+        # surviving-population bookkeeping: quarantining a chunk shrinks the
+        # population every price and estimate describes; re-derived from
+        # engine.quarantine_log after each round (see _note_quarantine)
+        self._quarantine_seen = 0       # quarantine_log entries consumed
+        self._quarantine_count = 0      # chunks quarantined so far
+        self._slot_retries0 = np.zeros(max_slots, np.int64)
         self._eff_chunks = int(store.num_chunks)
         self._eff_tuples = int(store.num_tuples)
         self._eff_bytes = (float(np.asarray(store.chunk_sizes).sum())
@@ -243,12 +262,37 @@ class OLAWorkloadServer:
                   fn=lambda: len(self.queue))
         reg.gauge("server_slots_resident", help="occupied scan slots",
                   fn=lambda: sum(w is not None for w in self.slot_wq))
+        reg.gauge("server_chunks_quarantined",
+                  help="chunks removed from the population",
+                  fn=lambda: self._quarantine_count)
+        reg.gauge("server_quarantine_events",
+                  help="engine quarantine_log length",
+                  fn=lambda: len(self.engine.quarantine_log))
+        if self.engine.pipeline is not None:
+            self.engine.pipeline.bind_metrics(reg)
+        injected = getattr(self.store, "injected", None)
+        if isinstance(injected, dict):
+            for kind in sorted(injected):
+                reg.gauge("faults_injected",
+                          help="FaultInjector events by kind",
+                          labels={"kind": kind},
+                          fn=(lambda k=kind: self.store.injected.get(k, 0)))
 
     def metrics_snapshot(self) -> dict:
-        """JSON-able observability snapshot of every registry instrument."""
-        return self.metrics.snapshot()
+        """JSON-able observability snapshot of every registry instrument,
+        plus ``quarantine_log``: the quarantined chunk ids in order."""
+        snap = self.metrics.snapshot()
+        snap["quarantine_log"] = [int(j) for j in self.engine.quarantine_log]
+        return snap
+
+    def _decoded_fraction(self) -> float:
+        """Parse-once cache coverage of the scan (0.0 without a decoded
+        cache)."""
+        return float(self.engine.decoded_fraction())
 
     def close(self) -> None:
+        """Release engine resources (the streaming prefetcher's reader
+        thread); idempotent, a no-op under packed residency."""
         self.engine.close()
 
     def __enter__(self) -> "OLAWorkloadServer":
@@ -269,6 +313,87 @@ class OLAWorkloadServer:
         """Raw tuples the shared scan has extracted (workload total)."""
         return int(self.state.scan_m.sum())
 
+    # -------------------------------------------------- fault tolerance ----
+    def _pipeline_retries(self) -> int:
+        """Cumulative retried chunk reads (streaming; 0 packed)."""
+        pf = self.engine.pipeline
+        return int(pf.read_retries) if pf is not None else 0
+
+    @property
+    def chunks_quarantined(self) -> int:
+        return self._quarantine_count
+
+    def quarantine(self, chunk_ids) -> None:
+        """Quarantine chunks by hand (operator escape hatch, tests): the
+        path round_data takes when a read exhausts its retries."""
+        before = int(self.state.quarantined.sum())
+        self.state = quarantine_chunks(self.state, chunk_ids)
+        if int(self.state.quarantined.sum()) == before:
+            return
+        log = self.engine.quarantine_log
+        known = set(int(j) for j in log)
+        qn = self.state.quarantined.cpu().numpy()
+        log.extend(sorted(int(j) for j in np.flatnonzero(qn)
+                          if int(j) not in known))
+        self._note_quarantine(force=True)
+
+    def _note_quarantine(self, force: bool = False) -> None:
+        """Absorb newly quarantined chunks into every population-priced
+        structure: resident queries' explain records, the decoded cache,
+        the synopsis, and the scan rate and admission totals, re-priced
+        over the survivors.  A round with nothing new costs one
+        list-length check."""
+        log = self.engine.quarantine_log
+        if len(log) <= self._quarantine_seen and not force:
+            return
+        new = [int(j) for j in log[self._quarantine_seen:]]
+        self._quarantine_seen = len(log)
+        if new:
+            for w in self.slot_wq:
+                if w is not None and w.explain is not None:
+                    w.explain.record_degradation(
+                        round=self.rounds, t=self.t_model, chunk_ids=new)
+            if self.tracer.enabled:
+                self.tracer.event("quarantine", chunks=len(new))
+        qn = self.state.quarantined.cpu().numpy()
+        self._quarantine_count = int(qn.sum())
+        sizes = np.asarray(self.store.chunk_sizes)
+        alive = ~qn
+        self._eff_chunks = int(alive.sum())
+        self._eff_tuples = int(sizes[alive].sum())
+        self._eff_bytes = (float(sizes[alive].sum())
+                           * self.store.codec.record_bytes)
+        # quarantined chunks leave the decoded cache too (their bytes are
+        # no longer trusted); the CPU discount re-prices over the rest
+        if new:
+            self.engine.drop_decoded_chunks(new)
+        self._scan_rate = scan_tuples_per_s(
+            self.store, self.config, rates=self.rates,
+            total_bytes=self._eff_bytes, total_tuples=self._eff_tuples,
+            decoded_fraction=self._decoded_fraction())
+        if self.synopsis is not None and new:
+            self.synopsis.drop_chunks(new)
+
+    def _mask_quarantined_seed(self, seed: Optional[dict]) -> Optional[dict]:
+        """Zero a seed row's quarantined columns: the synopsis re-absorbs
+        the engine's extraction cache, which may still hold windows of a
+        chunk quarantined after it was read."""
+        if seed is None or self._quarantine_count == 0:
+            return seed
+        alive = ~self.state.quarantined.cpu().numpy()
+        return dict(
+            m=np.where(alive, np.asarray(seed["m"]), 0),
+            ysum=np.where(alive, np.asarray(seed["ysum"]), 0.0),
+            ysq=np.where(alive, np.asarray(seed["ysq"]), 0.0),
+            psum=np.where(alive, np.asarray(seed["psum"]), 0.0))
+
+    def _fault_fields(self, s: int) -> dict:
+        """The degraded-answer fields of a result retiring from slot ``s``."""
+        return dict(degraded=self._quarantine_count > 0,
+                    chunks_quarantined=self._quarantine_count,
+                    read_retries=max(self._pipeline_retries()
+                                     - int(self._slot_retries0[s]), 0))
+
     # ------------------------------------------------------------ intake ----
     def submit(self, query: Query, arrival_t: Optional[float] = None,
                plan: Optional[str] = None) -> int:
@@ -281,8 +406,9 @@ class OLAWorkloadServer:
                 f"unknown plan {plan!r}; expected one of {sorted(PLAN_CODES)}")
         row = encode_slot(query, self.store.codec.num_cols)  # validates early
         if self.synopsis is None and not (
-                self.state.scan_m.cpu().numpy()
-                < np.asarray(self.store.chunk_sizes)).any():
+                (self.state.scan_m.cpu().numpy()
+                 < np.asarray(self.store.chunk_sizes))
+                & ~self.state.quarantined.cpu().numpy()).any():
             raise ValueError(
                 "scan fully extracted and no synopsis configured: the query "
                 "can never be served; construct the server with "
@@ -342,12 +468,14 @@ class OLAWorkloadServer:
                               rounds=result.rounds_resident)
 
     def _admit(self, s: int, wq: WorkloadQuery) -> None:
+        df = self._decoded_fraction()
         plan = wq.plan or select_plan(self.store, self.config, wq.query,
-                                      rates=self.rates)
+                                      rates=self.rates, decoded_fraction=df)
         row = wq.row or encode_slot(wq.query, self.store.codec.num_cols)
         row["plan"] = np.int32(PLAN_CODES[plan])
         self._refresh_synopsis()
-        seed = self.synopsis.seed_slot(wq.query) if self.synopsis else None
+        seed = self._mask_quarantined_seed(
+            self.synopsis.seed_slot(wq.query) if self.synopsis else None)
         stats, seeded = slot_stats_write(self.state.stats, s, seed,
                                          self.store.num_chunks)
         stopped = self.state.stopped.clone()
@@ -360,14 +488,18 @@ class OLAWorkloadServer:
         self.slot_admit_round[s] = self.rounds
         self.slot_plan[s] = plan
         self.slot_seeded[s] = seeded
+        self._slot_retries0[s] = self._pipeline_retries()
         if wq.explain is not None:
-            # the Eq. (4) pricing the plan was chosen under
+            # the Eq. (4) pricing the plan was chosen under (population-
+            # adjusted, decoded-cache-discounted)
             t_io, t_cpu = eq4_cost_terms(
                 self.store, self.config, self.rates,
-                total_bytes=self._eff_bytes, total_tuples=self._eff_tuples)
+                total_bytes=self._eff_bytes, total_tuples=self._eff_tuples,
+                decoded_fraction=df)
             wq.explain.plan = plan
             wq.explain.cost_t_io_s = float(t_io)
             wq.explain.cost_t_cpu_s = float(t_cpu)
+            wq.explain.decoded_fraction = float(df)
             wq.explain.effective_epsilon = float(
                 row.get("eps", wq.query.epsilon))
             if not wq.explain.admission_reason:
@@ -407,7 +539,8 @@ class OLAWorkloadServer:
             tuples_seen=int(st.m[s].sum()),
             rounds_resident=0, from_synopsis=True,
             sched_outcome="queued" if wq.queued else "admitted",
-            queue_wait=self.slot_admit_t[s] - wq.arrival_t))
+            queue_wait=self.slot_admit_t[s] - wq.arrival_t,
+            **self._fault_fields(s)))
         self._release(s)
         return True
 
@@ -479,7 +612,8 @@ class OLAWorkloadServer:
                 rounds_resident=int(self.rounds - self.slot_admit_round[s]),
                 unserved=bad,
                 sched_outcome="queued" if wq.queued else "admitted",
-                queue_wait=float(self.slot_admit_t[s] - wq.arrival_t)))
+                queue_wait=float(self.slot_admit_t[s] - wq.arrival_t),
+                **self._fault_fields(s)))
             self._release(s)
 
     def _any_active(self) -> bool:
@@ -515,6 +649,10 @@ class OLAWorkloadServer:
             b = self.engine.budget_ladder(float(self.state.budget))
             with tr.span("claims"):
                 self.state, data = self.engine.round_data(self.state)
+            # a failed read may have quarantined chunks inside round_data:
+            # fold the survivors into every population-priced structure
+            # before the round estimates over them
+            self._note_quarantine()
             mode, data = self.engine.data_mode(data)
             with tr.span("kernel", b=b, mode=mode):
                 self.state, rep = self.engine.round_fn(b, mode)(

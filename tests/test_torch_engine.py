@@ -130,9 +130,26 @@ def test_worker_speeds_and_plan_claims(store8):
         _assert_states(tst, jst, f"round {r}")
 
 
-def test_unported_options_raise():
-    for kw in (dict(residency="stream"), dict(decoded_cache_bytes=1),
-               dict(max_groups=2), dict(extract_backend="pallas")):
+@pytest.mark.parametrize("kw", [
+    dict(residency="stream"), dict(decoded_cache_bytes=1),
+    dict(max_groups=2), dict(extract_backend="pallas")],
+    ids=["stream", "decoded", "groups", "pallas"])
+def test_unported_options_raise(kw):
+    """GROUP BY and the Pallas backends stay unported; streaming residency
+    and its decoded cache build, and the cache without streaming is
+    refused."""
+    if kw.get("residency") == "stream":
+        cfg = t_eng.EngineConfig(decoded_cache_bytes=1 << 20, **kw)
+        assert (cfg.residency, cfg.slab_row_tile, cfg.prefetch_lookahead,
+                cfg.prefetch_adaptive) == ("stream", 256, 8, False)
+        with pytest.raises(ValueError):
+            t_eng.EngineConfig(residency="mmap")
+    elif "decoded_cache_bytes" in kw:
+        with pytest.raises(ValueError, match="residency='stream'"):
+            t_eng.EngineConfig(**kw)
+        with pytest.raises(ValueError):
+            t_eng.EngineConfig(residency="stream", decoded_cache_bytes=-1)
+    else:
         with pytest.raises(NotImplementedError):
             t_eng.EngineConfig(**kw)
 
