@@ -15,7 +15,15 @@ either is missing or any phase fails.  Phases:
                chunks ``jw`` == the packed kernel on those ``jw``; the
                decoded kernel fed by ``extract_parse`` == the slab kernel on
                the raw rows; a mixed pair with complementary budgets == the
-               single kernel.
+               single kernel.  The grouped kernel at the grouped deployment's
+               shapes (W=4, S=4, G=9, C=4) and the main store's (C=16, S=8
+               with grouped, ungrouped and discovery-only slots), B in {8,
+               64, 4096}: against its plain version, tallies bit for bit,
+               and every tracked cell bit for bit equal to kernel 1 on its
+               group_fanout slot.  ``chunk_agg`` over the whole store with
+               the deployment's plans (totals against float64 answers) and
+               ``round_stats`` at (4, 4096, 256), each through its ``ops``
+               entry point.
 3. server    — the deployment: the paper's synthetic dataset (§7.1; 16
                Zipf columns, column k with s = 0.25·k) as 256-byte ASCII
                records, 8,388,608 tuples (2 GiB) in 128 chunks of 65,536,
@@ -40,9 +48,19 @@ either is missing or any phase fails.  Phases:
                decoded-kernel launches == rounds + mixed rounds,
                extract_parse launches == decoded fills, peak device memory
                below 512 MiB (printed beside the packed run's).
-7. times     — each kernel's time per launch beside its bound and the plain
-               version's time, the mean server round, and the kernel's share
-               of round time, each beside the card's name and power limit.
+7. grouped parity — benchmarks/bench_workload.py's grouped smoke lane
+               (8,192 wiki-like tuples, 12 chunks, 16 languages, 4 grouped
+               queries) on the card and on the CPU: integer state, the
+               cells' gm and the promotions identical round for round.
+8. grouped deployment — the main path of the GROUP BY slice (GROUP_TUPLES):
+               every query retires, mean top-5 recall >= 0.9, each query's
+               five largest tracked cells within 3·ε of their exact totals
+               and a non-empty __other__ cell, the grouped kernel launched
+               once per round and no other kernel.
+9. times     — each kernel's time per launch beside its bound and the plain
+               version's time, the mean server rounds, the kernel's share
+               of round time and the tally fold's, each beside the card's
+               name and power limit.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -51,6 +69,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import subprocess
@@ -66,17 +85,22 @@ sys.path.insert(0, os.path.join(REPO, "src"))
 
 from repro_torch.core.engine import EngineConfig, SlotOLAEngine  # noqa: E402
 from repro_torch.core.queries import (  # noqa: E402
-    And, Column, Having, Linear, Query, Range, empty_slot_table, encode_slot,
-    linear_plan, slot_table_set)
+    And, Column, GroupBy, Having, Linear, Query, Range, empty_slot_table,
+    encode_slot, linear_plan, slot_table_set)
 from repro_torch.data.chunkstore import ChunkStore  # noqa: E402
 from repro_torch.data.generator import (  # noqa: E402
-    make_synthetic_zipf, store_dataset)
+    make_synthetic_zipf, make_wiki_like, store_dataset)
 from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels.chunk_agg import chunk_agg_cuda  # noqa: E402
 from repro_torch.kernels.extract_parse import extract_parse_cuda  # noqa: E402
 from repro_torch.kernels.ref import slot_extract_ref  # noqa: E402
+from repro_torch.kernels.round_stats import round_stats_cuda  # noqa: E402
 from repro_torch.kernels.slot_extract import slot_extract_cuda  # noqa: E402
+from repro_torch.kernels.slot_extract_grouped import (  # noqa: E402
+    slot_extract_grouped_cuda)
 from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
     slot_eval_decoded_cuda, slot_extract_stream_cuda)
 from repro_torch.sampling.permutation import (  # noqa: E402
@@ -96,10 +120,33 @@ OPTIONS = dict(max_slots=8, synopsis_budget_tuples=4096)
 DECODED_CACHE_BYTES = 1 << 30       # the stream deployment's decoded cache
 STREAM_PEAK_LIMIT = 512 << 20       # its device memory must stay below this
 CACHE_CAP = 128                     # the server's synopsis cache rows per chunk
-PROFILE_ROUNDS = 200                # rounds of each deployment profiled
+# rounds of each deployment profiled: the profiler's own processing of a
+# round's ~900-1,900 launch events costs far more than the round, so few
+PROFILE_ROUNDS = 25
+
+# the grouped deployment: benchmarks/bench_workload.py's full grouped lane
+# (40 languages, 8 grouped queries, 4 slots) on wiki-like data as 64-byte
+# ASCII records in 128 uneven chunks.  The tuple count is cut from
+# 8,388,608 (PERF.md §4): every round of this workload runs at B = 8, and
+# its queries need tens to hundreds of thousands of tuples each, so the
+# round count grows with the table (scripts/rehearse_grouped.py on the CPU:
+# 8,368 rounds at 262,144 tuples, 33,768 at 1,048,576) and the full table
+# would not finish in the limit; below 262,144 tuples the late-admitted
+# queries miss 3·ε, in the reference too (ROADMAP queue 3).
+GROUP_TUPLES = 262_144
+GROUP_CHUNKS = 128
+GROUP_LANGS = 40
+GROUP_QUERIES = 8
+GROUP_ENGINE = dict(num_workers=4, seed=7, max_groups=8)
+GROUP_OPTIONS = dict(max_slots=4, synopsis_budget_tuples=0)
+GROUP_TOP_K = 5
+# the grouped smoke lane (parity phase): 8,192 tuples, 12 chunks, 16
+# languages, the first four of the same queries
+LANE = dict(tuples=8192, chunks=12, langs=16, queries=4)
 
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
-           slot_eval_decoded_cuda, extract_parse_cuda)
+           slot_eval_decoded_cuda, extract_parse_cuda,
+           slot_extract_grouped_cuda, chunk_agg_cuda, round_stats_cuda)
 
 
 def reset_launches() -> None:
@@ -118,8 +165,12 @@ F32_OPS_PER_S = 67e12
 FIELD_BYTES = 16
 
 
+START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"{time.perf_counter() - START:7.1f}s {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -170,12 +221,49 @@ def deployment_queries(values: np.ndarray) -> list[Query]:
     ]
 
 
+def build_wiki_store(num_tuples: int, num_chunks: int, langs: int):
+    """(values (T, 4) float64, ASCII ChunkStore in uneven chunks): the
+    grouped lane's wiki-like table, seed 0."""
+    values, _ = make_wiki_like(num_tuples, num_languages=langs, seed=DATA_SEED)
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        store = store_dataset(values, num_chunks=num_chunks, fmt="ascii",
+                              uneven=True, seed=DATA_SEED,
+                              encode_map=pool.map)
+    return values, store
+
+
+def grouped_queries(nq: int = GROUP_QUERIES) -> list[Query]:
+    """bench_workload.py's grouped lane (rng seed 3): SUM over hits or
+    bytes, ε from U(0.05, 0.10), GroupBy(col=0, max_groups=8, top_k=5)."""
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(nq):
+        col = int(rng.choice([1, 2]))
+        eps = float(rng.uniform(0.05, 0.10))
+        coeffs = tuple(1.0 if k == col else 0.0 for k in range(4))
+        out.append(Query(agg="sum", expr=Linear(coeffs), epsilon=eps,
+                         name=f"g{i}-c{col}", group_by=GroupBy(
+                             col=0, max_groups=8, top_k=GROUP_TOP_K)))
+    return out
+
+
+def plan_selection(values: np.ndarray, q: Query):
+    """The query's lowered plan and the rows its predicate selects (float64
+    comparisons; only the columns with a finite bound are tested, since
+    every value passes -inf <= v < inf)."""
+    plan = linear_plan([q], values.shape[1])
+    sel = np.ones(len(values), bool)
+    for c in range(values.shape[1]):
+        if np.isfinite(plan.lo[0, c]):
+            sel &= values[:, c] >= np.float64(plan.lo[0, c])
+        if np.isfinite(plan.hi[0, c]):
+            sel &= values[:, c] < np.float64(plan.hi[0, c])
+    return plan, sel
+
+
 def exact_answer(values: np.ndarray, q: Query) -> float:
     """The query's exact answer over ``values`` in float64 numpy."""
-    plan = linear_plan([q], values.shape[1])
-    lo = plan.lo[0].astype(np.float64)
-    hi = plan.hi[0].astype(np.float64)
-    sel = np.all((values >= lo) & (values < hi), axis=1)
+    plan, sel = plan_selection(values, q)
     x = values @ plan.coeffs[0].astype(np.float64)
     if q.agg == "count":
         return float(sel.sum())
@@ -199,6 +287,25 @@ def phase_build() -> dict:
 
 
 # -------------------------------------------------------------- kernel ----
+def round_window(packed: torch.Tensor, sizes: np.ndarray, b: int,
+                 rng: np.random.Generator, w: int = 4):
+    """W random chunks of ``packed``, their permutation windows of width b
+    at random cursors, and unequal budgets (one worker idle), none beyond
+    its chunk: (jw, idx, b_eff) int32 on the card."""
+    dev = packed.device
+    n, m_max, _ = packed.shape
+    jw = rng.choice(n, size=w, replace=False)
+    off = rng.integers(0, sizes[jw])
+    idx = permutation_window_dyn(
+        chunk_seed(7, torch.as_tensor(jw, device=dev)),
+        torch.as_tensor(off, device=dev), b,
+        torch.as_tensor(sizes[jw], device=dev), m_max)
+    b_eff = np.minimum([b, max(b - 3, 1), max(b // 2, 1), 0][:w], sizes[jw])
+    return (torch.as_tensor(jw, dtype=torch.int32, device=dev),
+            idx.to(torch.int32).contiguous(),
+            torch.as_tensor(b_eff, dtype=torch.int32, device=dev))
+
+
 def kernel_inputs(packed: torch.Tensor, sizes: np.ndarray, b: int,
                   rng: np.random.Generator, w: int = 4):
     """One round's kernel inputs at width ``b``: W random chunks, their
@@ -207,15 +314,8 @@ def kernel_inputs(packed: torch.Tensor, sizes: np.ndarray, b: int,
     and three COUNT slots.  Range bounds sit 500 away from any value of
     the dataset's value grid, so no predicate rides a parse rounding."""
     dev = packed.device
-    n, m_max, rec = packed.shape
-    c = rec // FIELD_BYTES
-    jw = rng.choice(n, size=w, replace=False)
-    off = rng.integers(0, sizes[jw])
-    seeds = chunk_seed(7, torch.as_tensor(jw, device=dev))
-    idx = permutation_window_dyn(seeds, torch.as_tensor(off, device=dev), b,
-                                 torch.as_tensor(sizes[jw], device=dev),
-                                 m_max)
-    b_eff = np.asarray([b, max(b - 3, 1), max(b // 2, 1), 0])[:w]
+    c = packed.shape[2] // FIELD_BYTES
+    jw, idx, b_eff = round_window(packed, sizes, b, rng, w)
     s = 8
     coeffs = np.zeros((s, c), np.float32)
     lo = np.full((s, c), -np.inf, np.float32)
@@ -234,16 +334,11 @@ def kernel_inputs(packed: torch.Tensor, sizes: np.ndarray, b: int,
     gate = np.asarray([1, 1, 1, 0, 1, 1, 0, 1], np.float32)
     weights = np.asarray([1, 1, 1, 1, 0.5, 0.3, 1, 0.77], np.float32)
 
-    def i32(a):
-        return torch.as_tensor(np.asarray(a), device=dev).to(
-            torch.int32).contiguous()
-
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
-    return (packed, i32(jw), idx.to(torch.int32).contiguous(), i32(b_eff),
-            f32(coeffs), f32(lo), f32(hi), f32(is_count), f32(gate),
-            f32(weights))
+    return (packed, jw, idx, b_eff, f32(coeffs), f32(lo), f32(hi),
+            f32(is_count), f32(gate), f32(weights))
 
 
 # Tolerances of the kernel against its plain version.  cols: the kernel
@@ -417,6 +512,269 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             f" == slab, mixed pair == single (stats and cache rows)")
         del slab, dec, plain_dec
     return out
+
+
+# ------------------------------------------------------- grouped kernel ----
+def group_columns(spec: list, g: int):
+    """gcol (S,), gval/gact (S, G) for per-slot specs: None (ungrouped),
+    "discover" (only __other__ live) or a list of tracked values (live, with
+    __other__); the group column is column 0."""
+    s = len(spec)
+    gcol = np.full(s, -1, np.int32)
+    gval = np.zeros((s, g), np.float32)
+    gact = np.zeros((s, g), np.float32)
+    for i, sp in enumerate(spec):
+        if sp is None:
+            continue
+        gcol[i], gact[i, -1] = 0, 1.0
+        if sp != "discover":
+            gval[i, :len(sp)], gact[i, :len(sp)] = sp, 1.0
+    return gcol, gval, gact
+
+
+def wiki_plan():
+    """The grouped deployment's slot shapes (S=4, C=4): SUM(hits) with three
+    tracked languages, SUM(bytes) ungrouped, a COUNT (hour < 400) that
+    discovers, SUM(hits | hits > 3) with all eight cells tracked at weight
+    0.77.  Bounds sit half-way between the integer hours and hits."""
+    coeffs = np.zeros((4, 4), np.float32)
+    lo = np.full((4, 4), -np.inf, np.float32)
+    hi = np.full((4, 4), np.inf, np.float32)
+    coeffs[0, 1] = coeffs[3, 1] = coeffs[1, 2] = 1.0
+    hi[2, 3] = 400.5
+    lo[3, 1] = 3.5
+    plan = (coeffs, lo, hi, np.asarray([0, 0, 1, 0], np.float32),
+            np.ones(4, np.float32), np.asarray([1, 1, 1, 0.77], np.float32))
+    return plan, [[0.0, 1.0, 2.0], None, "discover", list(range(8))]
+
+
+MAIN_GROUP_SPEC = [[0.0, 1.0, 2.0, 3.0], None, "discover", None,
+                   list(range(8)), None, [1.0], [5.0]]
+
+
+def lang_store_packed(n: int = 8, m: int = 8192, langs: int = 40):
+    """A (n, m, 256) packed store at the main store's widths whose column 0
+    is an integer language id (Zipf 1.1 over ``langs``) and whose other
+    columns are the paper's synthetic Zipf columns: the group column the
+    tallies are bit-exact on."""
+    rng = np.random.default_rng(23)
+    vals = make_synthetic_zipf(num_tuples=n * m, num_cols=NUM_COLS, seed=23)
+    w = np.arange(1, langs + 1, dtype=np.float64) ** -1.1
+    vals[:, 0] = rng.choice(langs, size=n * m, p=w / w.sum())
+    store = store_dataset(vals, num_chunks=n, fmt="ascii")
+    packed, sizes = store.packed_device_view("cuda")
+    return packed, np.asarray(sizes)
+
+
+def grouped_case(packed, sizes, b, rng, shape: str):
+    """One round's grouped-kernel inputs on the card: ``shape`` "deployment"
+    (the wiki store, S=4, G=9, C=4) or "main" (C=16, S=8, G=9: kernel
+    1's plan with grouped, ungrouped and discovery-only slots)."""
+    dev = packed.device
+    if shape == "main":
+        inp = kernel_inputs(packed, sizes, b, rng)
+        spec = MAIN_GROUP_SPEC
+        base = list(inp)
+    else:
+        jw, idx, b_eff = round_window(packed, sizes, b, rng)
+        (coeffs, lo, hi, isc, gate, wts), spec = wiki_plan()
+        base = [packed, jw, idx, b_eff] + [
+            torch.as_tensor(a, device=dev)
+            for a in (coeffs, lo, hi, isc, gate, wts)]
+    gcol, gval, gact = group_columns(spec, 9)
+    groups = [torch.as_tensor(a, device=dev) for a in (gcol, gval, gact)]
+    salt = torch.tensor([int(rng.integers(0, 2 ** 31))], dtype=torch.int32,
+                        device=dev)
+    return base, groups, salt
+
+
+def fanout_plan(base, groups):
+    """Kernel 1's plan for the group_fanout slots of every live tracked cell
+    (the slot's predicate ∧ col == v, lowered as [v, nextafter(v))) and the
+    (slot, cell) each fan-out slot stands for."""
+    coeffs, lo, hi, isc, gate, wts = (t.cpu().numpy() for t in base[4:10])
+    gcol, gval, gact = (t.cpu().numpy() for t in groups)
+    rows, cells = [], []
+    for s_i in np.flatnonzero(gcol >= 0):
+        for g_i in np.flatnonzero(gact[s_i, :-1] > 0):
+            v = np.float32(gval[s_i, g_i])
+            c = gcol[s_i]
+            l, h = lo[s_i].copy(), hi[s_i].copy()
+            l[c] = max(l[c], v)
+            h[c] = min(h[c], np.nextafter(v, np.float32(np.inf)))
+            rows.append((coeffs[s_i], l, h, isc[s_i], gate[s_i], wts[s_i]))
+            cells.append((s_i, g_i))
+    dev = base[0].device
+    plan = [torch.as_tensor(np.stack([r[k] for r in rows]).astype(np.float32),
+                            device=dev) for k in range(6)]
+    return plan, cells
+
+
+# The grouped kernel against its plain version: the m lane and the cells'
+# count lanes equal; the sum lanes of stats and cells within (2B+16)·2^-24
+# relative (non-negative terms; see check_kernel); the decoded window within
+# 2^-21·|v| + 1e-6; the tallies bit for bit (an integer group column and
+# 0/1 indicators: every tally sum is exact in float32 in any order).  Then
+# the tracked cells' three sum lanes equal, bit for bit, kernel 1 on the
+# group_fanout slots of the same inputs (every mask factor is an exact 0/1
+# float and both reduce in one order).
+def phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes) -> list[dict]:
+    rng = np.random.default_rng(29)
+    rows = []
+    for shape, packed, sizes in (("deployment", gpacked, gsizes),
+                                 ("main", lpacked, lsizes)):
+        c = packed.shape[2] // FIELD_BYTES
+        for b in (8, 64, 4096):
+            base, groups, salt = grouped_case(packed, sizes, b, rng, shape)
+            st, cols, gs, tal = slot_extract_grouped_cuda(
+                *base, *groups, salt, kref.TALLY_BUCKETS, return_cols=True)
+            pst, pcols, pgs, ptal = kref.slot_extract_grouped_ref(
+                *base[:9], *groups, salt, num_cols=c, return_cols=True,
+                weights=base[9])
+            fplan, cells = fanout_plan(base, groups)
+            fst, _ = slot_extract_cuda(*base[:4], *fplan)
+            torch.cuda.synchronize()
+            h = {k: v.cpu().numpy() for k, v in dict(
+                st=st, pst=pst, gs=gs, pgs=pgs, tal=tal, ptal=ptal,
+                cols=cols, pcols=pcols, fst=fst).items()}
+            rel = check_sums(h["st"], h["pst"], b, f"grouped {shape} stats")
+            grel = check_sums(h["gs"], h["pgs"], b, f"grouped {shape} cells")
+            if not np.array_equal(h["tal"], h["ptal"]):
+                raise AssertionError(f"grouped {shape} B={b}: tallies differ "
+                                     "from the plain version")
+            lim = 2.0 ** -21 * np.abs(h["pcols"]) + 1e-6
+            if (np.abs(h["cols"] - h["pcols"]) > lim).any():
+                raise AssertionError(f"grouped {shape} B={b}: cols differ "
+                                     "beyond 2^-21·|v|+1e-6")
+            for f, (s_i, g_i) in enumerate(cells):
+                if not np.array_equal(h["gs"][:, s_i, g_i, 1:],
+                                      h["fst"][:, f, 1:]):
+                    raise AssertionError(
+                        f"grouped {shape} B={b}: cell ({s_i}, {g_i}) != "
+                        "kernel 1 on its fan-out slot")
+            if not h["tal"].any():
+                raise AssertionError(f"grouped {shape} B={b}: no tallies")
+            rows.append(dict(
+                shape=shape, B=b, max_rel_err_sums=max(rel, grel),
+                max_abs_err=float(np.max(np.abs(h["cols"] - h["pcols"]))),
+                fanout_cells=len(cells)))
+            log(f"[grouped-kernel] {shape} B={b}: m and cell counts equal; "
+                f"sums max rel err {max(rel, grel):.3g} (rtol "
+                f"{(2 * b + 16) * 2.0 ** -24:.3g}); tallies bit for bit "
+                f"({int(h['tal'][..., 0, :].sum())} rows tallied); "
+                f"{len(cells)} tracked cells == kernel 1 on their fan-out "
+                "slots, bit for bit")
+    return rows
+
+
+# ---------------------------------------------------------- rows kernels ----
+def deployment_plan(values: np.ndarray):
+    """The deployment's eight queries lowered to (Q, C) coeffs/lo/hi."""
+    qs = deployment_queries(values)
+    lp = linear_plan(qs, values.shape[1])
+    return qs, [torch.as_tensor(a, device="cuda")
+                for a in (lp.coeffs, lp.lo, lp.hi)]
+
+
+def plain_chunk_agg(packed, sizes_t, plan, batch: int = 8) -> torch.Tensor:
+    """The plain version over the whole store, ``batch`` chunks a call
+    (its per-digit parse holds ~256 bytes per field in flight)."""
+    c = packed.shape[2] // FIELD_BYTES
+    return torch.cat([kref.chunk_agg_ref(packed[i:i + batch], c, *plan,
+                                         sizes_t[i:i + batch])
+                      for i in range(0, packed.shape[0], batch)])
+
+
+def parse_slack(values: np.ndarray, q: Query):
+    """Rows whose predicate the float32 parse may decide otherwise than
+    float64 does: a constrained value within one float32 spacing of its
+    bound but not equal to it (the bounds are integers, and an integer
+    equal to one parses exactly).  Returns (Σ|x| over them, their count)
+    for the query's plan."""
+    plan = linear_plan([q], values.shape[1])
+    near = np.zeros(len(values), bool)
+    for bounds in (plan.lo[0], plan.hi[0]):
+        for c in np.flatnonzero(np.isfinite(bounds)):
+            b = np.float64(bounds[c])
+            gap = np.float64(np.spacing(np.abs(bounds[c])))
+            d = np.abs(values[:, c] - b)
+            near |= (d <= gap) & (d > 0)
+    x = values[near] @ plan.coeffs[0].astype(np.float64)
+    return float(np.abs(x).sum()), int(near.sum())
+
+
+# chunk_agg over the whole packed store with the deployment's plans, through
+# ops.chunk_agg (the entry point): the count lanes equal the chunk sizes,
+# the kernel's lanes are within (2M+16)·2^-24 relative of the plain
+# version's (the count and Σp lanes exactly), and its per-query totals,
+# added over chunks in float64, agree with exact_answer's float64 answers
+# within (M/256 + 64)·2^-24 of Σ|x| (each term carries the parse's and the
+# linear expression's few roundings, and a chunk's sum is a chain of 5
+# shuffle levels, 8 warps and M/256 blocks) plus the rows the float32 parse
+# may move across a predicate bound (the dataset's values are multiples of
+# 999.99, so the parse rounds them; parse_slack counts those rows).
+# round_stats at (4, 4096, 256) on a round's gathered window, through
+# ops.round_stats, against its plain version as for slot_extract.
+def phase_rows_kernels(packed, sizes: np.ndarray, values: np.ndarray) -> dict:
+    qs, plan = deployment_plan(values)
+    sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
+    n, m_max, rec = packed.shape
+    reset_launches()
+    out = ops.chunk_agg(packed, sizes_t, *plan)
+    torch.cuda.synchronize()
+    agg_launches = chunk_agg_cuda.launches
+    plain = plain_chunk_agg(packed, sizes_t, plan)
+    torch.cuda.synchronize()
+    got, want = out.cpu().numpy(), plain.cpu().numpy()
+    if not np.array_equal(got[..., 0], np.broadcast_to(
+            sizes[:, None], got.shape[:2])):
+        raise AssertionError("chunk_agg: count lanes != chunk sizes")
+    rel = check_sums(got, want, m_max, "chunk_agg")
+    if not np.array_equal(got[..., 3], want[..., 3]):
+        raise AssertionError("chunk_agg: Σp lane differs from the plain one")
+    rtol = (m_max // 256 + 64) * 2.0 ** -24
+    tot = got.astype(np.float64).sum(0)                      # (Q, 4)
+    worst = 0.0
+    for qi, q in enumerate(qs):
+        exact = exact_answer(values, q)
+        slack_x, slack_n = parse_slack(values, q)
+        lp, sel = plan_selection(values, q)
+        abs_x = float(np.abs(values[sel] @ lp.coeffs[0].astype(
+            np.float64)).sum())
+        tol_x, tol_n = rtol * abs_x + slack_x, float(slack_n)
+        est = {"sum": tot[qi, 1], "count": tot[qi, 3],
+               "avg": tot[qi, 1] / tot[qi, 3]}[q.agg]
+        tol = {"sum": tol_x, "count": tol_n,
+               "avg": (tol_x + abs(exact) * tol_n) / tot[qi, 3]}[q.agg]
+        dev = abs(est - exact)
+        worst = max(worst, dev / abs(exact))
+        log(f"[rows] chunk_agg {q.name:>16}: {est:.10g} vs exact "
+            f"{exact:.10g} (|diff| {dev:.4g}, tol {tol:.4g}: {slack_n} rows "
+            f"within a float32 spacing of a bound)")
+        if dev > tol:
+            raise AssertionError(f"chunk_agg {q.name}: |diff| {dev:.4g} > "
+                                 f"{tol:.4g}")
+    rng = np.random.default_rng(31)
+    jw, idx, b_eff = round_window(packed, sizes, 4096, rng)
+    slab = packed[jw.long()[:, None], idx.long()].contiguous()
+    reset_launches()
+    rs = ops.round_stats(slab, b_eff, *plan)
+    torch.cuda.synchronize()
+    rs_launches = round_stats_cuda.launches
+    prs = kref.round_stats_ref(slab, rec // FIELD_BYTES, *plan, b_eff)
+    rs_rel = check_sums(rs.cpu().numpy(), prs.cpu().numpy(), 4096,
+                        "round_stats")
+    log(f"[rows] chunk_agg over {n} chunks ({int(sizes.sum())} rows): count "
+        f"lanes == sizes, sums max rel err {rel:.3g} vs the plain version "
+        f"(rtol {(2 * m_max + 16) * 2.0 ** -24:.3g}), totals within "
+        f"{worst:.3g} relative of float64; round_stats at "
+        f"{tuple(slab.shape)}: m lane equal, sums max rel err {rs_rel:.3g}")
+    return dict(chunk_agg_launches=agg_launches, chunk_agg_rel=rel,
+                chunk_agg_exact_rel=worst, round_stats_launches=rs_launches,
+                round_stats_rel=rs_rel, plan=plan, sizes_t=sizes_t,
+                max_abs_err=float(np.max(np.abs(got - want))),
+                rs_max_abs_err=float(np.max(np.abs(
+                    rs.cpu().numpy() - prs.cpu().numpy()))))
 
 
 # -------------------------------------------------------------- server ----
@@ -659,6 +1017,178 @@ def phase_stream_parity() -> dict:
         f"runs); float state bit for bit equal across the "
         f"{len(runs) - 1} card runs")
     return {k: dict(rounds=len(t), modes=m) for k, (t, m) in runs.items()}
+
+
+# ------------------------------------------------------- grouped parity ----
+GROUP_INT_FIELDS = ("cur", "head", "offset", "scan_m", "closed")
+
+
+def trace_grouped(device) -> tuple[list, list, object]:
+    """The grouped smoke lane on ``device``: per round the integer state
+    (with stats.m and the cells' gm) and every slot's tracked values in
+    promotion order; the results; the server."""
+    values, _ = make_wiki_like(LANE["tuples"], num_languages=LANE["langs"],
+                               seed=DATA_SEED)
+    store = store_dataset(values, num_chunks=LANE["chunks"], fmt="ascii",
+                          uneven=True, seed=DATA_SEED)
+    server = OLAWorkloadServer(store, EngineConfig(**GROUP_ENGINE),
+                               options=ServerOptions(**GROUP_OPTIONS),
+                               device=device)
+    for i, q in enumerate(grouped_queries(LANE["queries"])):
+        server.submit(q, arrival_t=1e-4 * i)
+    states = []
+
+    def on_round(srv):
+        st = srv.state
+        rec = {f: getattr(st, f).cpu().numpy() for f in GROUP_INT_FIELDS}
+        rec["stats.m"] = st.stats.m.cpu().numpy()
+        rec["gm"] = st.gm.cpu().numpy()
+        rec["promoted"] = [list(g) if g is not None else None
+                           for g in srv._slot_groups]
+        states.append(rec)
+
+    results = server.run(on_round=on_round)
+    return states, results, server
+
+
+def phase_grouped_parity() -> int:
+    """Card vs CPU on the grouped smoke lane: integer state, promotions in
+    order and per-query rounds equal round for round; the cells' floats
+    within a relative 1e-5 (float32 sums of the same terms in another
+    order)."""
+    on_card, res_card, _ = trace_grouped("cuda")
+    on_cpu, res_cpu, _ = trace_grouped("cpu")
+    if len(on_card) != len(on_cpu):
+        raise AssertionError(f"grouped parity: rounds differ: card "
+                             f"{len(on_card)}, cpu {len(on_cpu)}")
+    for r, (a, b) in enumerate(zip(on_card, on_cpu)):
+        for f in a:
+            same = (a[f] == b[f]) if f == "promoted" else \
+                np.array_equal(a[f], b[f])
+            if not same:
+                raise AssertionError(f"grouped parity round {r}: {f} differs "
+                                     "card vs cpu")
+    worst = 0.0
+    for a, b in zip(res_card, res_cpu):
+        if (a.name, a.rounds_resident, a.tuples_seen) != (
+                b.name, b.rounds_resident, b.tuples_seen):
+            raise AssertionError(f"grouped parity {a.name}: outcome differs")
+        if [(g.value, g.n, g.is_other) for g in a.groups if not g.is_other] \
+                != [(g.value, g.n, g.is_other) for g in b.groups
+                    if not g.is_other]:
+            raise AssertionError(f"grouped parity {a.name}: cells differ")
+        for ga, gb in zip(a.groups, b.groups):
+            d = abs(ga.estimate - gb.estimate) / max(abs(gb.estimate), 1e-30)
+            worst = max(worst, d)
+        log(f"[grouped-parity] {a.name:>8} rounds {a.rounds_resident:4d} seen "
+            f"{a.tuples_seen:5d} tracked "
+            f"{[g.value for g in a.groups if not g.is_other]}")
+    if worst > 1e-5:
+        raise AssertionError(f"grouped parity: cell estimates differ by "
+                             f"{worst:.3g} relative card vs cpu")
+    log(f"[grouped-parity] card == cpu over {len(on_card)} rounds: integer "
+        f"state, gm and promotions identical; cell estimates within "
+        f"{worst:.3g} relative")
+    return len(on_card)
+
+
+# --------------------------------------------------- grouped deployment ----
+def exact_group_totals(values: np.ndarray, q: Query) -> np.ndarray:
+    """Exact float64 per-language totals of a grouped SUM query."""
+    col = next(k for k, c in enumerate(q.expr.coeffs) if c)
+    return np.bincount(values[:, 0].astype(np.int64), weights=values[:, col],
+                       minlength=GROUP_LANGS)
+
+
+def run_grouped_server(store, device):
+    server = OLAWorkloadServer(store, EngineConfig(**GROUP_ENGINE),
+                               options=ServerOptions(**GROUP_OPTIONS),
+                               device=device)
+    for i, q in enumerate(grouped_queries()):
+        server.submit(q, arrival_t=1e-4 * i)
+    return server
+
+
+def phase_grouped_deployment(values, store) -> dict:
+    """The grouped deployment on the card (see GROUP_TUPLES): every query
+    retires; top-5 recall against the exact per-language totals >= 0.9 on
+    average (the lane's own gate); each query's five largest tracked cells
+    within 3·ε of their exact totals, with __other__ non-empty; the grouped
+    kernel launched once per round and no other kernel."""
+    queries = grouped_queries()
+    # earlier servers sit in reference cycles (metrics gauges close over
+    # them) with their packed stores: collect them before the peak is reset
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    server = run_grouped_server(store, "cuda")
+    fold = {"s": 0.0}
+    fold_fn = server._fold_group_discovery
+
+    def timed_fold(rep):
+        t = time.perf_counter()
+        fold_fn(rep)
+        fold["s"] += time.perf_counter() - t
+
+    server._fold_group_discovery = timed_fold
+    reset_launches()
+    t0 = time.perf_counter()
+    results = server.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    server.close()
+    rounds = server.rounds
+    if server.truncated or len(results) != len(queries):
+        raise AssertionError("grouped deployment truncated")
+    log(f"[grouped] {'query':>8} {'eps':>6} {'rounds':>6} {'seen':>7} "
+        f"{'recall':>6} {'max dev/eps':>11} {'other n':>8}  tracked")
+    failures, recalls = [], []
+    for r, q in zip(results, queries):
+        tot = exact_group_totals(values, q)
+        true_top = set(np.argsort(-tot, kind="stable")[:GROUP_TOP_K]
+                       .astype(float))
+        groups = r.groups or []             # None: the query saw no tuple
+        tracked = [g for g in groups if not g.is_other]
+        other = [g for g in groups if g.is_other]
+        recall = len(true_top & {g.value for g in tracked}) / GROUP_TOP_K
+        recalls.append(recall)
+        top = sorted(tracked, key=lambda g: -abs(g.estimate))[:GROUP_TOP_K]
+        devs = [abs(g.estimate - tot[int(g.value)]) / abs(tot[int(g.value)])
+                for g in top]
+        worst = max(devs) / q.epsilon if devs else float("inf")
+        if (len(top) < GROUP_TOP_K or worst > 3.0 or len(other) != 1
+                or other[0].n <= 0):
+            failures.append(r.name)
+        log(f"[grouped] {r.name:>8} {q.epsilon:6.4f} {r.rounds_resident:6d} "
+            f"{r.tuples_seen:7d} {recall:6.2f} {worst:11.3f} "
+            f"{other[0].n if other else -1:8d}  "
+            f"{[int(g.value) for g in tracked]}")
+    mean_recall = float(np.mean(recalls))
+    launches = counts["slot_extract_grouped"]
+    log(f"[grouped] rounds {rounds}, tuples_scanned {server.tuples_scanned} "
+        f"of {store.num_tuples}, top-up passes {server.topup_passes}, mean "
+        f"top-{GROUP_TOP_K} recall {mean_recall:.3f}, grouped kernel "
+        f"launches {launches}, wall {wall:.3f} s, mean server round "
+        f"{wall / rounds * 1e3:.3f} ms, tally fold {fold['s'] / rounds * 1e3:.4f}"
+        f" ms per round ({100 * fold['s'] / wall:.2f}% of the wall), peak "
+        f"device memory {peak / 2**20:.1f} MiB (allocated before the run "
+        f"{before / 2**20:.1f} MiB)")
+    if failures:
+        raise AssertionError(f"grouped cells outside 3·eps or empty spill: "
+                             f"{failures}")
+    if mean_recall < 0.9:
+        raise AssertionError(f"grouped top-{GROUP_TOP_K} recall "
+                             f"{mean_recall:.3f} < 0.9")
+    if launches != rounds or sum(counts.values()) != launches:
+        raise AssertionError(f"grouped kernel launches {launches} != rounds "
+                             f"{rounds}, or another kernel ran: {counts}")
+    return dict(rounds=rounds, launches=launches, wall_s=wall,
+                fold_s=fold["s"], peak=peak, recall=mean_recall,
+                packed=server.engine.packed,
+                sizes=np.asarray(store.chunk_sizes))
 
 
 # --------------------------------------------------- stream deployment ----
@@ -983,6 +1513,107 @@ def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
     return out
 
 
+def grouped_bound_ms(w: int, b: int, c: int, s: int, g: int, h: int,
+                     return_cols: bool):
+    """The grouped kernel's bound: window rows, indices, budgets, plan and
+    group descriptors read once; stats, cells, tallies (and cols) written
+    once; per row the parse and per slot the evaluation, per cell the
+    indicator and its four terms, per slot the hash and three moments."""
+    nbytes = (w * b * c * FIELD_BYTES + w * b * 4 + 2 * w * 4
+              + 3 * s * c * 4 + 3 * s * 4 + s * 4 + 2 * s * g * 4 + 4
+              + w * s * 4 * 4 + w * s * g * 4 * 4 + w * s * 3 * h * 4
+              + (w * b * c * 4 if return_cols else 0))
+    ops_ = w * b * (c * (14 * 2 + 3) + s * (2 * c + 2 * c + 8) + s * g * 8
+                    + s * 9)
+    return bound(nbytes, ops_)
+
+
+def rows_bound_ms(rows: int, blocks: int, c: int, q: int):
+    """A rows pass's bound: the valid rows read once, the valid counts and
+    plan read, (blocks, Q, 4) written; per row the parse and per plan 2C
+    compares, C multiply-adds and 8 ops."""
+    nbytes = (rows * c * FIELD_BYTES + blocks * 4 + 3 * q * c * 4
+              + blocks * q * 16)
+    return bound(nbytes, rows * (c * (14 * 2 + 3) + q * (4 * c + 8)))
+
+
+def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
+    """Device and per-call times of the three kernels this slice added, at
+    the main path's shapes, beside their bounds and plain versions."""
+    rng = np.random.default_rng(37)
+    out = {}
+    c = gpacked.shape[2] // FIELD_BYTES
+    h = kref.TALLY_BUCKETS
+    for b in (8, 4096):
+        sets = []
+        for _ in range(16):
+            base, groups, salt = grouped_case(gpacked, gsizes, b, rng,
+                                              "deployment")
+            base[3] = torch.minimum(torch.full_like(base[3], b),
+                                    torch.as_tensor(gsizes, device="cuda")
+                                    [base[1].long()].to(torch.int32))
+            sets.append((base, groups, salt))
+
+        def call(i, sets=sets):
+            base, groups, salt = sets[i % 16]
+            return slot_extract_grouped_cuda(*base, *groups, salt, h)
+
+        rows_read = int(sets[0][0][3].sum())
+        v = dict(device_ms=device_ms(call, 200, ("grouped_blocks",
+                                                 "grouped_reduce")),
+                 call_ms=time_cuda(call, 200),
+                 bound=grouped_bound_ms(4, b, c, 4, 9, h, False),
+                 rows=rows_read)
+        if b == 4096:
+            def plain(i, sets=sets):
+                base, groups, salt = sets[i % 16]
+                return kref.slot_extract_grouped_ref(
+                    *base[:9], *groups, salt, num_cols=c, weights=base[9])
+            v["plain_ms"] = time_cuda(plain, 20)
+        out[("slot_extract_grouped", b)] = v
+    n, m_max, rec = packed.shape
+    cc = rec // FIELD_BYTES
+    plan, sizes_t = rows["plan"], rows["sizes_t"]
+    q = plan[0].shape[0]
+
+    def agg(i):
+        return chunk_agg_cuda(packed, sizes_t, *plan)
+
+    plain_chunk_agg(packed, sizes_t, plan)            # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain_chunk_agg(packed, sizes_t, plan)
+    end.record()
+    torch.cuda.synchronize()
+    out[("chunk_agg", n)] = dict(
+        device_ms=device_ms(agg, 20, ("chunk_agg_blocks", "reduce_partials")),
+        call_ms=time_cuda(agg, 20), plain_ms=start.elapsed_time(end),
+        bound=rows_bound_ms(int(sizes.sum()), n, cc, q))
+    sets = []
+    for _ in range(16):
+        jw, idx, _ = round_window(packed, sizes, 4096, rng)
+        slab = packed[jw.long()[:, None], idx.long()].contiguous()
+        sets.append((slab, torch.full((4,), 4096, dtype=torch.int32,
+                                      device="cuda")))
+
+    def rs(i):
+        slab, be = sets[i % 16]
+        return round_stats_cuda(slab, be, *plan)
+
+    def prs(i):
+        slab, be = sets[i % 16]
+        return kref.round_stats_ref(slab, cc, *plan, be)
+
+    out[("round_stats", 4096)] = dict(
+        device_ms=device_ms(rs, 200, ("round_stats_blocks",
+                                      "reduce_partials")),
+        call_ms=time_cuda(rs, 200), plain_ms=time_cuda(prs, 20),
+        bound=rows_bound_ms(4 * 4096, 4, cc, q))
+    return out
+
+
 def profile_rounds(server, rounds: int, tag: str) -> None:
     """Where a server round's time goes: ``rounds`` rounds of ``server``
     under ``torch.profiler`` — device busy share of the wall, the kernels by
@@ -1005,6 +1636,7 @@ def profile_rounds(server, rounds: int, tag: str) -> None:
         server.run(max_rounds=rounds)
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
+    t1 = time.perf_counter()
     events = prof.key_averages()
     # the round_data annotation also appears as a device-side range: it is
     # a span, not device work, so it is left out of the busy time
@@ -1019,7 +1651,8 @@ def profile_rounds(server, rounds: int, tag: str) -> None:
         f"({100 * busy / wall_us:.1f}%), idle "
         f"{100 - 100 * busy / wall_us:.1f}%; round_data "
         f"{feed_us / 1e3:.1f} ms ({100 * feed_us / wall_us:.1f}% of the "
-        f"wall)")
+        f"wall); the profiler's processing took "
+        f"{time.perf_counter() - t1:.1f} s")
     dev = sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]
     for e in dev:
         log(f"[profile {tag}] device {e.self_device_time_total / 1e3:9.2f} "
@@ -1050,7 +1683,6 @@ def main() -> int:
     # full float32 (no TF32 matmul or convolution path)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(card, flush=True)
@@ -1065,10 +1697,24 @@ def main() -> int:
         f"{store.num_chunks} chunks, {store.codec.record_bytes}-byte ASCII "
         f"records ({store.num_tuples * store.codec.record_bytes / 2**30:.2f}"
         f" GiB) generated and encoded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gvalues, gstore = build_wiki_store(GROUP_TUPLES, GROUP_CHUNKS,
+                                       GROUP_LANGS)
+    log(f"[data] grouped deployment: {gstore.num_tuples} wiki-like tuples "
+        f"({GROUP_LANGS} languages) x 4 columns, {gstore.num_chunks} uneven "
+        f"chunks, {gstore.codec.record_bytes}-byte records "
+        f"({gstore.num_tuples * gstore.codec.record_bytes / 2**20:.1f} MiB) "
+        f"in {time.perf_counter() - t0:.1f} s")
 
     packed, sizes = store.packed_device_view("cuda")
     checks = phase_kernel(packed, sizes)
     stream_checks = phase_stream_kernels(packed, sizes)
+    gpacked, gsizes = gstore.packed_device_view("cuda")
+    gsizes = np.asarray(gsizes)
+    lpacked, lsizes = lang_store_packed()
+    gchecks = phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes)
+    del lpacked
+    rows = phase_rows_kernels(packed, np.asarray(sizes), values)
     del packed
     srv = phase_server(store, values)
     srv_rungs, launches = srv["rungs"], srv["launches"]
@@ -1077,12 +1723,21 @@ def main() -> int:
     times = phase_times(srv["packed"], srv["sizes"], srv["rungs"],
                         srv["wall_s"])
     stimes = phase_stream_times(srv["packed"], srv["sizes"])
+    gtimes = phase_grouped_times(gpacked, gsizes, srv["packed"],
+                                 srv["sizes"], rows)
+    rows_run = {k: v for k, v in rows.items() if k not in ("plan", "sizes_t")}
+    del rows
     packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s")}
     del srv
     torch.cuda.empty_cache()
     dep = phase_stream_deployment(store, values, packed_run)
     phase_profile(store, values, PROFILE_ROUNDS)
     del values
+    torch.cuda.empty_cache()
+    phase_grouped_parity()
+    gdep = phase_grouped_deployment(gvalues, gstore)
+    with run_grouped_server(gstore, "cuda") as server:
+        profile_rounds(server, PROFILE_ROUNDS, "grouped")
 
     def us(t):
         return "not measured" if t is None else f"{t * 1e3:.2f}"
@@ -1112,10 +1767,23 @@ def main() -> int:
             f"{'not measured' if plain is None else us(plain)} us; "
             f"{dep['launches'][name] / dep['rounds']:.4f} launches per "
             f"stream-deployment round")
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    per_round = {"slot_extract_grouped": gdep["launches"] / gdep["rounds"],
+                 "chunk_agg": 0.0, "round_stats": 0.0}
+    for (name, b), v in gtimes.items():
+        shape = {"slot_extract_grouped": f"W=4 B={b} C=4 S=4 G=9 H=128",
+                 "chunk_agg": f"N={b} chunks, C=16 Q=8",
+                 "round_stats": f"W=4 B={b} C=16 Q=8"}[name]
+        plain = v.get("plain_ms")
+        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
+            f"device time per launch (profiler); {us(v['call_ms'])} us per "
+            f"call with the wrapper (CUDA events); bound "
+            f"{v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain version "
+            f"{'not measured' if plain is None else us(plain)} us; "
+            f"{per_round[name]:.4f} launches per grouped-deployment round")
+    log("[done]")
 
     def timed(name, b):
-        v = stimes[(name, b)]
+        v = stimes.get((name, b)) or gtimes[(name, b)]
         ms = v["device_ms"] if v["device_ms"] is not None else v["call_ms"]
         return dict(ms=ms, plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
                     bound_by=v["bound"][1], library_ms=None)
@@ -1158,6 +1826,30 @@ def main() -> int:
         "launches": dep["launches"]["extract_parse"],
         "max_abs_err": max(r["max_abs_err"] for r in stream_checks["parse"]),
         **timed("extract_parse", t_rows),
+    }, {
+        "name": "slot_extract_grouped", "route": "cuda",
+        "source": "src/repro_torch/csrc/slot_extract_grouped.cu",
+        "replaces": "src/repro/kernels/slot_extract.py:252",
+        "launches": gdep["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in gchecks),
+        "max_rel_err_sums": max(r["max_rel_err_sums"] for r in gchecks),
+        **timed("slot_extract_grouped", 4096),
+    }, {
+        "name": "chunk_agg", "route": "cuda",
+        "source": "src/repro_torch/csrc/chunk_agg.cu",
+        "replaces": "src/repro/kernels/chunk_agg.py:67",
+        "launches": rows_run["chunk_agg_launches"],
+        "max_abs_err": rows_run["max_abs_err"],
+        "max_rel_err_sums": rows_run["chunk_agg_rel"],
+        **timed("chunk_agg", NUM_CHUNKS),
+    }, {
+        "name": "round_stats", "route": "cuda",
+        "source": "src/repro_torch/csrc/round_stats.cu",
+        "replaces": "src/repro/kernels/round_stats.py:44",
+        "launches": rows_run["round_stats_launches"],
+        "max_abs_err": rows_run["rs_max_abs_err"],
+        "max_rel_err_sums": rows_run["round_stats_rel"],
+        **timed("round_stats", 4096),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ and numpy only — never ``jax`` and nothing of ``repro``.
 Entry points (``SlotOLAEngine``, ``OLAEngine``, ``EstimationController``,
 ``OLAWorkloadServer``) run on the CUDA device unless the caller passes
 ``device="cpu"``; without a CUDA device they raise rather than quietly
-running on the CPU.  The round's EXTRACT is the hand-written CUDA kernel
-``csrc/slot_extract.cu`` for CUDA tensors and its plain PyTorch version
-(``kernels/ref.py``) for CPU tensors.
+running on the CPU.  The round's EXTRACT is a hand-written CUDA kernel
+(``csrc/slot_extract.cu``; ``csrc/slot_extract_grouped.cu`` when the
+engine serves GROUP BY; the slab kernels under streaming residency) for
+CUDA tensors and its plain PyTorch version (``kernels/ref.py``) for CPU
+tensors.
 """

@@ -34,10 +34,15 @@ of the chunks its workers claim, through
 parse-once decoded-chunk cache (``decoded_cache_bytes``).  Both give the
 same statistics.  A read that exhausts its retries quarantines the chunk
 (:func:`quarantine_chunks`) and the round re-plans over the survivors.
-GROUP BY raises ``NotImplementedError``; the grouped state arrays are
-carried zero-width so the state matches the reference's.  PyTorch runs
-eagerly, so the reference's jitted round per ``(b_static, decoded_mode)``
-is a plain method call here.
+
+With ``EngineConfig.max_groups > 0`` the slot plane answers GROUP BY: every
+slot owns G = max_groups + 1 group cells (the last the ``__other__`` spill)
+with their own ``(S, G, N)`` statistics, and each round reports salted
+group-value tallies the server folds into its discovery sketches.  The fused
+grouped kernel runs under packed residency only; the ``"ref"`` composition
+runs grouped rounds under both residencies.  PyTorch runs eagerly, so the
+reference's jitted round per ``(b_static, decoded_mode)`` is a plain method
+call here.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from repro_torch.data.faults import FaultError
 from repro_torch.data.pipeline import SlabPrefetcher
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.ref import TALLY_BUCKETS, sum_last, tally_hash
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sampling.permutation import (
     chunk_seed,
@@ -120,6 +126,10 @@ class EngineConfig:
     # extraction and later rounds feed the decoded-input kernel, skipping
     # the parse.  Statistics and the modeled clock are the same on or off.
     decoded_cache_bytes: int = 0
+    # grouped query plane (slot-table mode only): each slot owns max_groups
+    # tracked group cells plus one __other__ spill cell, each with its own
+    # (S, G, N) statistics; 0 keeps the group arrays zero-width and every
+    # round ungrouped
     max_groups: int = 0
 
     def __post_init__(self):
@@ -137,8 +147,8 @@ class EngineConfig:
             raise ValueError(
                 "decoded_cache_bytes requires residency='stream' (the cache "
                 "lives in the slab prefetcher)")
-        if self.max_groups != 0:
-            raise NotImplementedError("GROUP BY is not ported yet")
+        if self.max_groups < 0:
+            raise ValueError("max_groups must be >= 0")
         if self.stats_dtype not in ("float32", "float64"):
             raise ValueError("stats_dtype must be float32 or float64")
 
@@ -166,10 +176,14 @@ class EngineState(NamedTuple):
     cache: torch.Tensor      # (N, cap, C) f32 extracted-tuple cache
     schedule: torch.Tensor   # (N,) int32 claim order over chunk ids
     quarantined: torch.Tensor  # (N,) bool chunk dropped from the population
-    gm: torch.Tensor         # (S, 0, N) grouped plane, zero-width here
-    gys: torch.Tensor
-    gyq: torch.Tensor
-    gps: torch.Tensor
+    # grouped plane, G = max_groups + 1 cells (the last __other__), all four
+    # (S, 0, N) when the engine has max_groups == 0.  A cell's gm counts every
+    # tuple its slot sampled while the cell was live (not group-filtered):
+    # the per-chunk sample size a dedicated fan-out slot would carry.
+    gm: torch.Tensor         # (S, G, N) int32 per-cell sample sizes
+    gys: torch.Tensor        # (S, G, N) per-cell Σ x (group-masked)
+    gyq: torch.Tensor        # (S, G, N) per-cell Σ x²
+    gps: torch.Tensor        # (S, G, N) per-cell Σ p (base predicate ∧ group)
 
 
 class RoundReport(NamedTuple):
@@ -186,12 +200,16 @@ class RoundReport(NamedTuple):
     bytes_round: torch.Tensor  # ()
     all_stopped: torch.Tensor  # () bool
     exhausted: torch.Tensor    # () bool — every chunk closed
-    g_est: torch.Tensor        # (Q, 0) grouped plane, zero-width here
-    g_lo: torch.Tensor
-    g_hi: torch.Tensor
-    g_err: torch.Tensor
-    g_n: torch.Tensor
-    g_tal: torch.Tensor        # (Q, 3, 0)
+    # grouped plane, (S, G) per-cell answers ((Q, 0) when ungrouped)
+    g_est: torch.Tensor        # (S, G) per-cell estimates
+    g_lo: torch.Tensor         # (S, G)
+    g_hi: torch.Tensor         # (S, G)
+    g_err: torch.Tensor        # (S, G) per-cell error ratio
+    g_n: torch.Tensor          # (S, G) int32 tuples in each cell's sample
+    g_tal: torch.Tensor        # (S, 3, H) this round's [count, Σv, Σv²] per
+                               # salted-hash bucket of the slot's group value
+                               # (counted base-predicate rows only), which the
+                               # server folds into its discovery sketches
 
 
 class _Collectives:
@@ -261,6 +279,14 @@ class EngineProgram:
         self.total_tuples = int(np.sum(chunk_sizes))
         self.num_cols = int(codec.num_cols)
         self.dtype = getattr(torch, config.stats_dtype)
+        # grouped-plane sizing: G cells per slot including __other__, H tally
+        # buckets for the online discovery sketches
+        self.group_cells = config.max_groups + 1 if config.max_groups else 0
+        self.tally_buckets = TALLY_BUCKETS if self.group_cells else 0
+        if self.group_cells and self.max_slots is None:
+            raise ValueError(
+                "max_groups > 0 requires slot-table mode (grouped queries "
+                "run through the workload slot plane)")
         # the fused kernel parses fixed-width ASCII, needs linear+range
         # plans and sums in f32: outside that "cuda" raises here, not
         # mid-scan (use "ref" there)
@@ -272,6 +298,11 @@ class EngineProgram:
                     "extract_backend='cuda' requires the fixed-width ASCII "
                     "codec and float32 stats (the fused kernel parses ASCII "
                     "records and accumulates its sums in f32)")
+            if self.group_cells and config.residency == "stream":
+                raise ValueError(
+                    "grouped queries (max_groups > 0) support the fused "
+                    "kernel only under residency='packed'; use "
+                    "extract_backend='ref' for streaming rounds")
             if self.max_slots is None:
                 lp = linear_plan(self.queries, self.num_cols)
                 self._plan_coeffs = torch.as_tensor(lp.coeffs, device=dev)
@@ -329,10 +360,10 @@ class EngineProgram:
                               dtype=torch.float32, device=dev),
             schedule=torch.as_tensor(self.schedule_np, device=dev),
             quarantined=torch.zeros((n,), dtype=torch.bool, device=dev),
-            gm=torch.zeros((q, 0, n), dtype=_I32, device=dev),
-            gys=torch.zeros((q, 0, n), dtype=dtype, device=dev),
-            gyq=torch.zeros((q, 0, n), dtype=dtype, device=dev),
-            gps=torch.zeros((q, 0, n), dtype=dtype, device=dev),
+            gm=torch.zeros((q, self.group_cells, n), dtype=_I32, device=dev),
+            gys=torch.zeros((q, self.group_cells, n), dtype=dtype, device=dev),
+            gyq=torch.zeros((q, self.group_cells, n), dtype=dtype, device=dev),
+            gps=torch.zeros((q, self.group_cells, n), dtype=dtype, device=dev),
         )
         if synopsis_seed is not None:
             def t(key, dt):
@@ -388,6 +419,27 @@ class EngineProgram:
         mask[schedule.long()] = torch.arange(n, device=closed.device) < prefix_len
         return mask
 
+    def _round_tallies(self, colv: torch.Tensor, pr: torch.Tensor,
+                       live: torch.Tensor, rnd: torch.Tensor,
+                       dtype) -> torch.Tensor:
+        """Per-slot ``(S, 3, H)`` group-value tallies ``[count, Σv, Σv²]``
+        bucketed by the round-salted hash of the group value.  ``pr`` is the
+        fully masked predicate indicator, so only counted base-predicate
+        rows tally; ``live`` (S,) keeps them to slots still discovering
+        groups (their ``__other__`` cell is live).  The adds land in the
+        reference's scatter order (slot, worker, window position)."""
+        s, w, b = colv.shape
+        hbk = self.tally_buckets
+        h = tally_hash(colv, rnd, hbk)                           # (S, W, B)
+        flat = (torch.arange(s, device=colv.device)[:, None, None] * hbk
+                + h).reshape(-1)
+        prf = (pr * live[:, None, None].to(pr.dtype)).reshape(-1).to(dtype)
+        cv = colv.reshape(-1).to(dtype)
+        moments = torch.stack([prf, prf * cv, prf * cv * cv], -1)
+        tal = torch.zeros((s * hbk, 3), dtype=dtype,
+                          device=colv.device).index_add_(0, flat, moments)
+        return tal.reshape(s, hbk, 3).permute(0, 2, 1).contiguous()
+
     # ------------------------------------------------------------ round ----
     def round_body(self, state: EngineState, data, speeds: torch.Tensor,
                    b_static: int, coll: Optional[_Collectives] = None,
@@ -420,6 +472,9 @@ class EngineProgram:
         coll = coll or _Collectives()
         n = self.n_chunks
         slot_mode = slots is not None
+        grouped = slot_mode and self.group_cells > 0
+        if slot_mode and slots.group_cells != self.group_cells:
+            raise ValueError("slot table group capacity != engine max_groups")
         q = self.q_dim
         dtype = state.stats.ysum.dtype
         sizes = state.stats.M
@@ -510,6 +565,18 @@ class EngineProgram:
                 else:
                     res = stream(kernel_ops.slot_extract_stream, data, b_eff)
                 stats4, cache_rows = res if cap > 0 else (res, None)
+            elif grouped:
+                stats4, cols, gstats4, tal_w = kernel_ops.slot_extract(
+                    data, j, idx, b_eff, coeffs, p_lo, p_hi, isc, gate_v,
+                    weights=wts, return_cols=cap > 0, gcol=slots.gcol,
+                    gval=slots.gval, gact=slots.gact, salt=state.round,
+                    tally_buckets=self.tally_buckets)
+                # (W, S, G, 4) partials -> (S, G, W) sums; the workers'
+                # tallies add up to the round's (S, 3, H)
+                g_sum_x = torch.movedim(gstats4[..., 1].to(dtype), 0, -1)
+                g_sum_xx = torch.movedim(gstats4[..., 2].to(dtype), 0, -1)
+                g_sum_p = torch.movedim(gstats4[..., 3].to(dtype), 0, -1)
+                tal = torch.sum(tal_w.to(dtype), dim=0)
             else:
                 stats4, cols = kernel_ops.slot_extract(
                     data, j, idx, b_eff, coeffs, p_lo, p_hi, isc, gate_v,
@@ -541,9 +608,30 @@ class EngineProgram:
                 vf = valid.to(dtype)[None]
             x = x.to(dtype) * vf * gate
             pr = pr.to(dtype) * vf * gate
-            sum_x = torch.sum(x, -1)                             # (Q|S, W)
-            sum_xx = torch.sum(x * x, -1)
-            sum_p = torch.sum(pr, -1)
+            sum_x = sum_last(x)                                  # (Q|S, W)
+            sum_xx = sum_last(x * x)
+            sum_p = sum_last(pr)
+            if grouped:
+                # per-cell sums from the decoded window.  Every mask factor
+                # is an exact 0/1 float, so a tracked cell's products are
+                # the group_fanout slot's bit for bit; a row matches at most
+                # one tracked value, so __other__ is the complement
+                gcol_c = torch.clamp(slots.gcol.long(), 0, self.num_cols - 1)
+                colv = torch.movedim(cols, -1, 0)[gcol_c]        # (S, W, B)
+                gvals = slots.gval.to(dtype)
+                gactf = slots.gact.to(dtype)
+                eq = (colv[:, None] == gvals[:, :, None, None]).to(dtype)
+                trk = eq * gactf[:, :, None, None]               # (S, G, W, B)
+                other = ((1.0 - torch.sum(trk[:, :-1], dim=1))
+                         * gactf[:, -1][:, None, None])          # (S, W, B)
+                ind = torch.cat([trk[:, :-1], other[:, None]], dim=1)
+                gx = ind * x[:, None]                            # (S, G, W, B)
+                gp = ind * pr[:, None]
+                g_sum_x = sum_last(gx)                           # (S, G, W)
+                g_sum_xx = sum_last(gx * gx)
+                g_sum_p = sum_last(gp)
+                tal = self._round_tallies(colv, pr, gactf[:, -1],
+                                          state.round, dtype)
 
         # ---- 3. MERGE -------------------------------------------------------
         # index_add_ replaces the reference's scatter-add.  Active workers
@@ -562,6 +650,15 @@ class EngineProgram:
             # per-slot sample-size deltas honor the fairness budgets
             deltas["dmq"] = _zeros((q, n), _I32, mj).index_add_(
                 1, j, b_slot * af[None, :])
+        if grouped:
+            gshape = (q, self.group_cells, n)
+            deltas["dgys"] = _zeros(gshape, dtype, mj).index_add_(
+                2, j, g_sum_x * af)
+            deltas["dgyq"] = _zeros(gshape, dtype, mj).index_add_(
+                2, j, g_sum_xx * af)
+            deltas["dgps"] = _zeros(gshape, dtype, mj).index_add_(
+                2, j, g_sum_p * af)
+            deltas["gtal"] = tal
         deltas = coll.merge(deltas)
         if slot_mode:
             # a slot only counts tuples extracted while it is active
@@ -573,6 +670,22 @@ class EngineProgram:
             ysum=state.stats.ysum + deltas["dys"],
             ysq=state.stats.ysq + deltas["dyq"],
             psum=state.stats.psum + deltas["dps"])
+        if grouped:
+            # a cell's m counts every tuple its slot sampled while the cell
+            # was live; a cell activated mid-scan accumulates from then on
+            # (a contiguous window of each chunk's permutation is still a
+            # uniform without-replacement sample)
+            gact_i = slots.gact.to(_I32)
+            gm_new = state.gm + dm_q[:, None, :] * gact_i[:, :, None]
+            gys_new = state.gys + deltas["dgys"]
+            gyq_new = state.gyq + deltas["dgyq"]
+            gps_new = state.gps + deltas["dgps"]
+            g_tal = deltas["gtal"]
+        else:
+            gm_new, gys_new = state.gm, state.gys
+            gyq_new, gps_new = state.gyq, state.gps
+            g_tal = torch.zeros((q, 3, self.tally_buckets), dtype=dtype,
+                                device=dev)
         scan_m = state.scan_m + deltas["dm"]
         offset = state.offset + deltas["dm"]
 
@@ -747,6 +860,58 @@ class EngineProgram:
             decided = est.having_decision_coded(
                 lo, hi, op, slots.having_thr.to(dtype))
             stop_now = (err <= eps_vec) | ((op != HAVING_NONE) & (decided != -1))
+            if grouped:
+                # per-cell estimates over the (S, G, N) rows: the estimators
+                # broadcast over leading dims, and a cell with gm == 0 on a
+                # chunk is simply not in that cell's sample
+                gmask = est_mask[:, None, :]
+                gstats_est = BiLevelStats(
+                    M=stats.M,
+                    m=torch.where(gmask, gm_new, torch.zeros_like(gm_new)),
+                    ysum=torch.where(gmask, gys_new, zero_d),
+                    ysq=torch.where(gmask, gyq_new, zero_d),
+                    psum=torch.where(gmask, gps_new, zero_d),
+                    n_total=n_eff, m_total=m_eff)
+                g_sum_t = est.tau_hat(gstats_est)
+                g_sum_v, _ = est.var_hat(gstats_est)
+                g_cnt_t = est.count_tau_hat(gstats_est)
+                g_cnt_v, _ = est.count_var_hat(gstats_est)
+                g_avg_t, g_avg_v, _ = est.avg_estimate(gstats_est)
+                agg_b = agg[:, None]
+                g_est = torch.where(agg_b == AGG_SUM, g_sum_t,
+                                    torch.where(agg_b == AGG_COUNT, g_cnt_t,
+                                                g_avg_t))
+                g_var = torch.where(agg_b == AGG_SUM, g_sum_v,
+                                    torch.where(agg_b == AGG_COUNT, g_cnt_v,
+                                                g_avg_v))
+                g_half = slots.z.to(dtype)[:, None] * torch.sqrt(
+                    torch.clamp(g_var, min=0.0))
+                g_lo, g_hi = g_est - g_half, g_est + g_half
+                g_err = est.error_ratio(g_est, g_lo, g_hi)
+                g_n = torch.sum(torch.where(gmask, gm_new,
+                                            torch.zeros_like(gm_new)),
+                                dim=-1, dtype=_I32)
+                # grouped stop: the slot's top-K live cells by |estimate|
+                # must all meet its eps (ranks by a stable double argsort;
+                # ties, such as every dead cell's -inf, keep index order)
+                cell_ok = (slots.gact > 0) & (g_n > 0)
+                scores = torch.where(cell_ok, torch.abs(g_est),
+                                     torch.full_like(g_est, float("-inf")))
+                ranks = torch.argsort(
+                    torch.argsort(-scores, dim=-1, stable=True), dim=-1,
+                    stable=True)
+                need_cell = cell_ok & (ranks < slots.gtopk[:, None])
+                # discovery guard: with fewer than top_k live cells the rule
+                # would hold vacuously (a fresh slot has only __other__
+                # live), so such a slot keeps scanning; a store with fewer
+                # groups than top_k runs to exhaustion and retires there
+                n_live = torch.sum(cell_ok.to(_I32), dim=-1)
+                grouped_ok = (torch.all(~need_cell
+                                        | (g_err <= eps_vec[:, None]), dim=-1)
+                              & (n_live >= slots.gtopk))
+                # grouped slots retire on the grouped rule alone (the scalar
+                # err describes the base-predicate population)
+                stop_now = torch.where(slots.gcol >= 0, grouped_ok, stop_now)
             stopped = state.stopped | stop_now
             all_stopped = torch.all(stopped | ~slots.active)
             n_chunks_rep = torch.sum((scan_m > 0).to(_I32))
@@ -774,7 +939,10 @@ class EngineProgram:
             n_chunks_rep = stats_est.n
             m_tuples_rep = torch.sum(stats_est.m)
 
-        g_zero = torch.zeros((q, 0), dtype=dtype, device=dev)
+        if not grouped:
+            g_est = g_lo = g_hi = g_err = torch.zeros(
+                (q, self.group_cells), dtype=dtype, device=dev)
+            g_n = torch.zeros((q, self.group_cells), dtype=_I32, device=dev)
         all_closed = torch.all(closed) & (head >= n)
         new_state = EngineState(
             stats=stats, scan_m=scan_m, offset=offset, closed=closed,
@@ -786,16 +954,15 @@ class EngineProgram:
             cpu_bound=cpu_bound, cached_m=state.cached_m,
             raw_touched=raw_touched, cache=cache, schedule=state.schedule,
             quarantined=state.quarantined,
-            gm=state.gm, gys=state.gys, gyq=state.gyq, gps=state.gps)
+            gm=gm_new, gys=gys_new, gyq=gyq_new, gps=gps_new)
         report = RoundReport(
             estimate=estimate, lo=lo, hi=hi, err=err, decided=decided,
             n_chunks=n_chunks_rep, m_tuples=m_tuples_rep,
             round_io_s=round_io, round_cpu_s=round_cpu,
             tuples_round=flag_deltas["b_eff_total"], bytes_round=bytes_round,
             all_stopped=all_stopped, exhausted=all_closed,
-            g_est=g_zero, g_lo=g_zero, g_hi=g_zero, g_err=g_zero,
-            g_n=torch.zeros((q, 0), dtype=_I32, device=dev),
-            g_tal=torch.zeros((q, 3, 0), dtype=dtype, device=dev))
+            g_est=g_est, g_lo=g_lo, g_hi=g_hi, g_err=g_err, g_n=g_n,
+            g_tal=g_tal)
         return new_state, report
 
 
@@ -861,6 +1028,55 @@ def slot_stats_write(stats: BiLevelStats, s: int, seed: Optional[dict],
     return stats._replace(m=m, ysum=ysum, ysq=ysq, psum=psum), seeded
 
 
+def zero_group_cells(state: EngineState, s: int,
+                     cells=None) -> EngineState:
+    """Zero slot ``s``'s per-cell statistics rows (all cells, or the given
+    cell indices) in copies of the arrays; host-side, between rounds, and a
+    no-op on an ungrouped engine.  Admission gives a new occupant empty
+    cells, and a promotion restarts ``__other__`` (its meaning shrank): the
+    restarted cell samples the rest of each chunk's permutation, still a
+    uniform without-replacement sample."""
+    if state.gm.shape[1] == 0:
+        return state
+    sel = (slice(None) if cells is None
+           else torch.as_tensor(list(cells), dtype=torch.long,
+                                device=state.gm.device))
+
+    def zero(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        t[s, sel] = 0
+        return t
+
+    return state._replace(gm=zero(state.gm), gys=zero(state.gys),
+                          gyq=zero(state.gyq), gps=zero(state.gps))
+
+
+def slot_group_rows(state: EngineState, s: int) -> dict:
+    """Host copy of slot ``s``'s per-cell rows ``{gm, gys, gyq, gps}``, each
+    ``(G, N)``: per cell the ``{m, ysum, ysq, psum}`` contract of
+    :func:`slot_stats_snapshot`."""
+    return dict(gm=state.gm[s].cpu().numpy(), gys=state.gys[s].cpu().numpy(),
+                gyq=state.gyq[s].cpu().numpy(),
+                gps=state.gps[s].cpu().numpy())
+
+
+def state_from_numpy(state, device=None) -> EngineState:
+    """An :class:`EngineState` on ``device`` from any state with the same
+    fields holding array-likes (the reference package's state, read with
+    ``numpy.asarray``), grouped rows included, so a run can continue in
+    this package from another's mid-run state."""
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+
+    st = state.stats
+    stats = BiLevelStats(
+        M=t(st.M), m=t(st.m), ysum=t(st.ysum), ysq=t(st.ysq),
+        psum=t(st.psum), n_total=int(np.asarray(st.n_total)),
+        m_total=int(np.asarray(st.m_total)))
+    return EngineState(stats=stats, **{
+        f: t(getattr(state, f)) for f in EngineState._fields if f != "stats"})
+
+
 def quarantine_chunks(state: EngineState, chunk_ids) -> EngineState:
     """Host-side quarantine write (between rounds): mark chunks quarantined
     and closed and zero their statistics columns.
@@ -891,13 +1107,19 @@ def quarantine_chunks(state: EngineState, chunk_ids) -> EngineState:
         return t
 
     stats = state.stats
-    return state._replace(
+    state = state._replace(
         quarantined=mark(state.quarantined), closed=mark(state.closed),
         cached_m=zero_cols(state.cached_m),
         stats=stats._replace(m=zero_cols(stats.m),
                              ysum=zero_cols(stats.ysum),
                              ysq=zero_cols(stats.ysq),
                              psum=zero_cols(stats.psum)))
+    if state.gm.shape[1] > 0:
+        state = state._replace(gm=zero_cols(state.gm),
+                               gys=zero_cols(state.gys),
+                               gyq=zero_cols(state.gyq),
+                               gps=zero_cols(state.gps))
+    return state
 
 
 class _ResidencyMixin:

@@ -10,16 +10,20 @@ p (Q, ...))``; :func:`linear_plan` extracts the coefficient form the fused
 kernel consumes; :class:`SlotTable` is the data-driven counterpart the
 workload server writes rows into between rounds.
 
-GROUP BY is not part of this package yet: ``Query(group_by=...)`` raises
-``NotImplementedError``, and the slot table's group columns are zero-width.
-Linear expressions accumulate their terms in column order, the order the
-reference's f32 contraction takes on the CPU.
+``Query(group_by=GroupBy(...))`` is an online GROUP BY: the slot table
+carries per-slot group columns (``gcol/gval/gact/gtopk``, G = max_groups + 1
+cells of which the last is the ``__other__`` spill), zero-width when the
+table has no group capacity.  :func:`group_fanout` is the Section 2.2
+expansion the grouped plane is checked against.  Linear expressions
+accumulate their terms in column order, the order the reference's f32
+contraction takes on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Sequence
+import warnings
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -153,6 +157,19 @@ class Cmp:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupEq:
+    """Group-membership predicate ``col == value`` (the conjunct
+    :func:`group_fanout` adds)."""
+
+    col: int
+    value: float
+
+    def __call__(self, cols: torch.Tensor) -> torch.Tensor:
+        return cols[..., self.col] == torch.tensor(
+            self.value, dtype=cols.dtype, device=cols.device)
+
+
+@dataclasses.dataclass(frozen=True)
 class And:
     terms: tuple
 
@@ -178,9 +195,66 @@ class Having:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupBy:
+    """Online GROUP BY over one column, bounded at ``max_groups`` cells.
+
+    Up to ``max_groups`` distinct values get cells of their own with their
+    own sufficient statistics and CIs; values are discovered online by a
+    bounded heavy-hitter sketch fed from per-round group tallies, and every
+    untracked value spills into an ``__other__`` cell.  The query retires
+    when its ``top_k`` largest cells (by |estimate|) meet its epsilon.
+    ``values`` pins known group values into cells at admission: pinned cells
+    accumulate from the first round and equal the :func:`group_fanout`
+    expansion bit for bit."""
+
+    col: int
+    max_groups: int = 8
+    top_k: int = 0  # 0 -> all max_groups cells must converge
+    values: Optional[tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if self.max_groups < 1:
+            raise ValueError("GroupBy.max_groups must be >= 1")
+        if not (0 <= self.top_k <= self.max_groups):
+            raise ValueError("GroupBy.top_k must be in [0, max_groups]")
+        if self.values is not None:
+            vals = tuple(float(v) for v in self.values)
+            if len(vals) > self.max_groups:
+                raise ValueError(
+                    f"GroupBy: {len(vals)} pinned values exceed "
+                    f"max_groups={self.max_groups}")
+            if len(set(vals)) != len(vals):
+                raise ValueError("GroupBy: pinned values must be distinct")
+            object.__setattr__(self, "values", vals)
+
+    @property
+    def effective_top_k(self) -> int:
+        return self.top_k if self.top_k > 0 else self.max_groups
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupResult:
+    """One cell of a grouped answer (``WorkloadResult.groups``): ``value``
+    is the group's column value (NaN for the ``__other__`` spill, flagged by
+    ``is_other``), ``n`` the tuples sampled while the cell was live,
+    ``decision`` the cell's HAVING verdict (1 / 0 / -1 undecided or none)."""
+
+    value: float
+    estimate: float
+    lo: float
+    hi: float
+    err: float
+    n: int
+    decision: int = -1
+    is_other: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Query:
     """One OLA query: ``epsilon`` is the target error ratio, ``confidence``
-    the CI level (Section 2.2's user parameters)."""
+    the CI level (Section 2.2's user parameters).  With ``group_by`` the
+    scalar ``estimate/lo/hi`` describe the base-predicate population and
+    the per-group answers arrive as ``WorkloadResult.groups``."""
 
     agg: str  # 'sum' | 'count' | 'avg'
     expr: object = ONE
@@ -189,14 +263,14 @@ class Query:
     epsilon: float = 0.05
     confidence: float = 0.95
     name: str = "q"
-    group_by: object = None
+    group_by: Optional[GroupBy] = None
 
     def __post_init__(self):
         if self.agg not in ("sum", "count", "avg"):
             raise ValueError(f"unsupported aggregate: {self.agg}")
-        if self.group_by is not None:
-            raise NotImplementedError(
-                "GROUP BY is not ported to repro_torch yet")
+        if self.group_by is not None and not isinstance(self.group_by,
+                                                        GroupBy):
+            raise TypeError("Query.group_by must be a GroupBy (or None)")
 
     @property
     def columns_used(self) -> frozenset[int]:
@@ -212,7 +286,7 @@ class Query:
                 cols.update((node.a, node.b))
             elif isinstance(node, Custom):
                 cols.add(-1)  # unknown support: requires all columns
-            elif isinstance(node, (Range, Cmp)):
+            elif isinstance(node, (Range, Cmp, GroupEq)):
                 cols.add(node.col)
             elif isinstance(node, And):
                 for t in node.terms:
@@ -220,7 +294,35 @@ class Query:
 
         walk(self.expr)
         walk(self.pred)
+        if self.group_by is not None:
+            cols.add(self.group_by.col)
         return frozenset(cols)
+
+
+def group_fanout(base: Query, group_col: int, group_values: Sequence[float],
+                 ) -> list[Query]:
+    """GROUP BY as Section 2.2 prescribes it: one scalar query per known
+    group value, identical but for a group-membership conjunct.  The grouped
+    slot plane is checked against this expansion."""
+    out = []
+    for v in group_values:
+        pred = And(terms=(base.pred, GroupEq(group_col, float(v))))
+        out.append(dataclasses.replace(base, pred=pred, group_by=None,
+                                       name=f"{base.name}[g={v}]"))
+    return out
+
+
+def expand_group_by(base: Query, group_col: int, group_values: Sequence[float],
+                    ) -> list[Query]:
+    """Deprecated: write ``Query(group_by=GroupBy(col, max_groups, top_k))``
+    and read ``WorkloadResult.groups``.  Delegates to :func:`group_fanout`
+    after a ``DeprecationWarning``."""
+    warnings.warn(
+        "expand_group_by is deprecated; use "
+        "Query(group_by=GroupBy(col, max_groups, top_k)) and read "
+        "WorkloadResult.groups",
+        DeprecationWarning, stacklevel=2)
+    return group_fanout(base, group_col, group_values)
 
 
 def compile_queries(queries: Sequence[Query]) -> Callable:
@@ -295,8 +397,8 @@ def linear_plan(queries: Sequence[Query], num_cols: int) -> LinearPlan:
             elif isinstance(node, Range):
                 lo[qi, node.col] = max(lo[qi, node.col], node.lo)
                 hi[qi, node.col] = min(hi[qi, node.col], node.hi)
-            elif isinstance(node, Cmp):
-                op = node.op
+            elif isinstance(node, (GroupEq, Cmp)):
+                op = "==" if isinstance(node, GroupEq) else node.op
                 v = np.float32(node.value)
                 up = _next_up(v)
                 if up != 0 and abs(up) < tiny:
@@ -343,7 +445,8 @@ PLAN_CODES = {"chunk_level": PLAN_CHUNK_LEVEL, "holistic": PLAN_HOLISTIC,
 class SlotTable(NamedTuple):
     """Per-slot query descriptors, all tensors of leading dim S on the
     engine's device.  ``gcol/gval/gact/gtopk`` are the grouped plane's
-    columns, carried zero-width (G = 0) until GROUP BY is ported."""
+    columns: G = max_groups + 1 cells per slot, the last the ``__other__``
+    spill, or G = 0 for a table without group capacity."""
 
     coeffs: torch.Tensor      # (S, C) f32
     lo: torch.Tensor          # (S, C) f32
@@ -356,20 +459,28 @@ class SlotTable(NamedTuple):
     having_thr: torch.Tensor  # (S,) f32
     active: torch.Tensor      # (S,) bool
     weight: torch.Tensor      # (S,) f32 fairness share in (0, 1]
-    gcol: torch.Tensor        # (S,) int32, -1 = ungrouped
-    gval: torch.Tensor        # (S, 0) f32
-    gact: torch.Tensor        # (S, 0) f32
-    gtopk: torch.Tensor       # (S,) int32
+    gcol: torch.Tensor        # (S,) int32 group-by column, -1 = ungrouped
+    gval: torch.Tensor        # (S, G) f32 tracked group values
+    gact: torch.Tensor        # (S, G) f32 0/1 live cells; cell G-1 = __other__
+    gtopk: torch.Tensor       # (S,) int32 cells that must meet eps to stop
 
     @property
     def max_slots(self) -> int:
         return int(self.agg.shape[0])
 
+    @property
+    def group_cells(self) -> int:
+        """G: cells per slot including ``__other__`` (0 = ungrouped)."""
+        return int(self.gval.shape[1])
 
-def empty_slot_table(max_slots: int, num_cols: int,
+
+def empty_slot_table(max_slots: int, num_cols: int, max_groups: int = 0,
                      device=None) -> SlotTable:
-    """All-inactive table; inactive slots have an always-false predicate."""
+    """All-inactive table; inactive slots have an always-false predicate.
+    ``max_groups > 0`` gives every slot ``max_groups`` tracked cells plus the
+    ``__other__`` cell; 0 keeps the group columns zero-width."""
     s, c = int(max_slots), int(num_cols)
+    g = int(max_groups) + 1 if int(max_groups) > 0 else 0
 
     def full(shape, v, dtype):
         return torch.full(shape, v, dtype=dtype, device=device)
@@ -387,20 +498,42 @@ def empty_slot_table(max_slots: int, num_cols: int,
         active=full((s,), False, torch.bool),
         weight=full((s,), 1.0, torch.float32),
         gcol=full((s,), -1, torch.int32),
-        gval=full((s, 0), 0.0, torch.float32),
-        gact=full((s, 0), 0.0, torch.float32),
+        gval=full((s, g), 0.0, torch.float32),
+        gact=full((s, g), 0.0, torch.float32),
         gtopk=full((s,), 0, torch.int32),
     )
 
 
-def encode_slot(query: Query, num_cols: int,
-                plan: str = "resource_aware") -> dict:
+def encode_slot(query: Query, num_cols: int, plan: str = "resource_aware",
+                max_groups: int = 0) -> dict:
     """Encode one linear+range query as a slot-table row (numpy scalars and
-    rows).  Raises ``ValueError`` for queries outside the coefficient form."""
+    rows).  ``max_groups`` is the table's group capacity; a grouped query
+    asking for more cells raises.  Pinned ``GroupBy.values`` are live in
+    cells ``0..k-1`` from admission, and the ``__other__`` cell (last) is
+    live for every grouped slot.  Raises ``ValueError`` for queries outside
+    the coefficient form."""
     lp = linear_plan([query], num_cols)
     hop = (HAVING_NONE if query.having is None
            else HAVING_OP_CODES[query.having.op])
     thr = 0.0 if query.having is None else float(query.having.threshold)
+    g = int(max_groups) + 1 if int(max_groups) > 0 else 0
+    gcol, gtopk = -1, 0
+    gval = np.zeros((g,), np.float32)
+    gact = np.zeros((g,), np.float32)
+    gb = query.group_by
+    if gb is not None:
+        if gb.max_groups > int(max_groups):
+            raise ValueError(
+                f"query {query.name}: group_by.max_groups={gb.max_groups} "
+                f"exceeds the slot table's max_groups={int(max_groups)}")
+        if not (0 <= gb.col < num_cols):
+            raise ValueError(
+                f"query {query.name}: group_by column {gb.col} out of range")
+        gcol, gtopk = gb.col, gb.effective_top_k
+        gact[g - 1] = 1.0  # __other__ live from admission
+        for i, v in enumerate(gb.values or ()):
+            gval[i] = np.float32(v)
+            gact[i] = 1.0
     return dict(
         coeffs=lp.coeffs[0], lo=lp.lo[0], hi=lp.hi[0],
         agg=np.int32(_AGG_CODES[query.agg]),
@@ -409,13 +542,22 @@ def encode_slot(query: Query, num_cols: int,
         z=np.float32(z_score(query.confidence).item()),
         having_op=np.int32(hop), having_thr=np.float32(thr),
         active=True, weight=np.float32(1.0),
+        gcol=np.int32(gcol), gval=gval, gact=gact, gtopk=np.int32(gtopk),
     )
 
 
 def slot_table_set(table: SlotTable, s: int, row: dict) -> SlotTable:
-    """Row write (host-side, between rounds); returns a new table."""
+    """Row write (host-side, between rounds); returns a new table.  Group
+    columns fall back to the ungrouped row (``gcol=-1``, no live cell) when
+    absent or sized for another capacity."""
     out = SlotTable(*(t.clone() for t in table))
     dev = out.coeffs.device
+    g = table.group_cells
+    gval_row = np.asarray(row.get("gval", ()), np.float32).reshape(-1)
+    gact_row = np.asarray(row.get("gact", ()), np.float32).reshape(-1)
+    if gval_row.shape != (g,) or gact_row.shape != (g,):
+        gval_row = np.zeros((g,), np.float32)
+        gact_row = np.zeros((g,), np.float32)
     out.coeffs[s] = torch.as_tensor(row["coeffs"], dtype=torch.float32,
                                     device=dev)
     out.lo[s] = torch.as_tensor(row["lo"], dtype=torch.float32, device=dev)
@@ -428,9 +570,24 @@ def slot_table_set(table: SlotTable, s: int, row: dict) -> SlotTable:
     out.having_thr[s] = float(np.float32(row["having_thr"]))
     out.active[s] = bool(row["active"])
     out.weight[s] = float(np.float32(row.get("weight", 1.0)))
-    out.gcol[s] = -1
-    out.gtopk[s] = 0
+    out.gcol[s] = int(row.get("gcol", -1))
+    out.gval[s] = torch.as_tensor(gval_row, device=dev)
+    out.gact[s] = torch.as_tensor(gact_row, device=dev)
+    out.gtopk[s] = int(row.get("gtopk", 0))
     return out
+
+
+def slot_table_set_groups(table: SlotTable, s: int, gval_row,
+                          gact_row) -> SlotTable:
+    """Group-cell write for slot ``s`` (online discovery promotes sketch
+    heavy hitters into free cells between rounds): only ``gval`` and
+    ``gact`` change."""
+    gval, gact = table.gval.clone(), table.gact.clone()
+    gval[s] = torch.as_tensor(np.asarray(gval_row, np.float32),
+                              device=gval.device)
+    gact[s] = torch.as_tensor(np.asarray(gact_row, np.float32),
+                              device=gact.device)
+    return table._replace(gval=gval, gact=gact)
 
 
 def slot_table_clear(table: SlotTable, s: int) -> SlotTable:
@@ -441,6 +598,15 @@ def slot_table_clear(table: SlotTable, s: int) -> SlotTable:
     active[s] = False
     weight[s] = 1.0
     return table._replace(active=active, weight=weight)
+
+
+def slot_table_from_numpy(table, device=None) -> SlotTable:
+    """A :class:`SlotTable` on ``device`` from any table with the same
+    fields holding array-likes (the reference package's table, read with
+    ``numpy.asarray``), group columns included."""
+    return SlotTable(*(torch.as_tensor(np.array(getattr(table, f)),
+                                       device=device)
+                       for f in SlotTable._fields))
 
 
 def slot_evaluate(table: SlotTable, cols: torch.Tensor):

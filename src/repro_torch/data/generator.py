@@ -1,9 +1,10 @@
 """Synthetic dataset generators (counterpart of ``repro.data.generator``).
 
 :func:`make_synthetic_zipf` is the paper's §7.1 "synthetic" dataset: 16
-columns, column k Zipf with parameter ``0.25·k``; :func:`store_dataset`
-encodes values into a :class:`~repro_torch.data.chunkstore.ChunkStore`.
-Both draw from numpy ``Generator``s exactly as the reference does, so the
+columns, column k Zipf with parameter ``0.25·k``; :func:`make_wiki_like`
+is the wiki-traffic table the GROUP BY workloads group by language;
+:func:`store_dataset` encodes values into a
+:class:`~repro_torch.data.chunkstore.ChunkStore`.  All draw from numpy ``Generator``s exactly as the reference does, so the
 same seed gives the same table in either package.
 """
 
@@ -68,3 +69,21 @@ def store_dataset(values: np.ndarray, num_chunks: int, fmt: str = "ascii",
         store.append_chunk(raw, num_tuples=int(sizes[j]))
     store.finalize()
     return store
+
+
+def make_wiki_like(num_tuples: int = 262_144, num_languages: int = 40,
+                   seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Wiki-traffic-shaped data: [0] language_id, [1] hits, [2] bytes,
+    [3] hour.  Language frequencies are Zipf(1.1) (the first language
+    dominates); hits are lognormal, bytes proportional to hits.  Returns
+    ``(values, language_ids)``."""
+    rng = np.random.default_rng(seed)
+    lang_w = (np.arange(1, num_languages + 1, dtype=np.float64)) ** -1.1
+    lang_w /= lang_w.sum()
+    lang = rng.choice(num_languages, size=num_tuples, p=lang_w)
+    hits = np.floor(np.exp(rng.normal(2.0, 1.5, num_tuples)))
+    nbytes = hits * np.abs(rng.normal(8_000, 3_000, num_tuples))
+    nbytes = np.minimum(nbytes, 1e8 - 1)
+    hour = rng.integers(0, 24 * 31, num_tuples).astype(np.float64)
+    vals = np.stack([lang.astype(np.float64), hits, nbytes, hour], 1)
+    return vals, np.arange(num_languages)

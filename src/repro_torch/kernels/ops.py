@@ -11,8 +11,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.chunk_agg import chunk_agg_cuda
 from repro_torch.kernels.extract_parse import extract_parse_cuda
+from repro_torch.kernels.round_stats import round_stats_cuda
 from repro_torch.kernels.slot_extract import slot_extract_cuda
+from repro_torch.kernels.slot_extract_grouped import slot_extract_grouped_cuda
 from repro_torch.kernels.slot_extract_stream import (
     slot_eval_decoded_cuda,
     slot_extract_stream_cuda,
@@ -49,17 +52,40 @@ def extract_parse(raw: torch.Tensor, num_cols: int) -> torch.Tensor:
 
 
 def slot_extract(packed: torch.Tensor, jw, idx, b_eff, coeffs, lo, hi,
-                 is_count, gate, weights=None, return_cols: bool = False):
+                 is_count, gate, weights=None, return_cols: bool = False,
+                 gcol=None, gval=None, gact=None, salt=None,
+                 tally_buckets: int = _ref.TALLY_BUCKETS):
     """Fused round extraction: gather + parse + slot eval + partial stats.
 
     packed (N, M, rec) uint8, jw (W,) chunk ids, idx (W, B) window rows,
     b_eff (W,), coeffs/lo/hi (S, C), is_count/gate/weights (S,) ->
-    (stats (W, S, 4) = (m, Σx, Σx², Σp), cols (W, B, C) | None)."""
+    (stats (W, S, 4) = (m, Σx, Σx², Σp), cols (W, B, C) | None).
+
+    The grouped-plane descriptors (``gcol (S,)``, ``gval``/``gact (S, G)``
+    with G > 0, ``salt`` the round number) select the grouped variant, which
+    also returns per-cell stats ``(W, S, G, 4)`` and salted group tallies
+    ``(W, S, 3, H)``: ``(stats, cols | None, gstats, tal)``."""
     dev = packed.device
     i32 = _as(dev, torch.int32)
     jw, idx, b_eff = i32(jw), i32(idx), i32(b_eff)
     coeffs, lo, hi, is_count, gate, weights = _plan(
         dev, coeffs, lo, hi, is_count, gate, weights)
+    if gval is not None and int(gval.shape[1]) > 0:
+        f32 = _as(dev, torch.float32)
+        gcol, gval, gact = i32(gcol), f32(gval), f32(gact)
+        salt = i32(0 if salt is None else salt).reshape(1)
+        if dev.type == "cuda":
+            return slot_extract_grouped_cuda(
+                packed, jw, idx, b_eff, coeffs, lo, hi, is_count, gate,
+                weights, gcol, gval, gact, salt, tally_buckets,
+                return_cols=return_cols)
+        if dev.type == "cpu":
+            return _ref.slot_extract_grouped_ref(
+                packed, jw, idx, b_eff, coeffs, lo, hi, is_count, gate, gcol,
+                gval, gact, salt, num_cols=int(coeffs.shape[1]),
+                tally_buckets=tally_buckets, return_cols=return_cols,
+                weights=weights)
+        raise _unsupported("slot_extract_grouped", dev)
     if dev.type == "cuda":
         return slot_extract_cuda(packed, jw, idx, b_eff, coeffs, lo, hi,
                                  is_count, gate, weights,
@@ -70,6 +96,34 @@ def slot_extract(packed: torch.Tensor, jw, idx, b_eff, coeffs, lo, hi,
                                      num_cols=int(coeffs.shape[1]),
                                      return_cols=return_cols, weights=weights)
     raise _unsupported("slot_extract", dev)
+
+
+def _rows(name: str, kernel, plain, raw: torch.Tensor, valid, coeffs, lo,
+          hi) -> torch.Tensor:
+    dev = raw.device
+    f32 = _as(dev, torch.float32)
+    valid = _as(dev, torch.int32)(valid)
+    coeffs, lo, hi = f32(coeffs), f32(lo), f32(hi)
+    if dev.type == "cuda":
+        return kernel(raw.contiguous(), valid, coeffs, lo, hi)
+    if dev.type == "cpu":
+        return plain(raw, int(coeffs.shape[1]), coeffs, lo, hi, valid)
+    raise _unsupported(name, dev)
+
+
+def chunk_agg(raw: torch.Tensor, sizes, coeffs, lo, hi) -> torch.Tensor:
+    """Full-chunk pass: raw (N, M, rec) uint8 and a plan ``coeffs/lo/hi
+    (Q, C)`` -> (N, Q, 4) per-chunk ``(count, Σx, Σx², Σp)`` over the first
+    ``sizes[j]`` rows of each chunk."""
+    return _rows("chunk_agg", chunk_agg_cuda, _ref.chunk_agg_ref, raw, sizes,
+                 coeffs, lo, hi)
+
+
+def round_stats(slab: torch.Tensor, b_eff, coeffs, lo, hi) -> torch.Tensor:
+    """A gathered round slab (W, B, rec) uint8 and budgets (W,) -> (W, Q, 4)
+    partial stats over rows ``< b_eff[w]``."""
+    return _rows("round_stats", round_stats_cuda, _ref.round_stats_ref, slab,
+                 b_eff, coeffs, lo, hi)
 
 
 def _stream(decoded: bool, src, idx, b_eff, coeffs, lo, hi, is_count, gate,

@@ -16,6 +16,49 @@ import torch
 
 from repro_torch.core.queries import _lin
 from repro_torch.data.formats import AsciiFixedFormat
+from repro_torch.sampling.permutation import _M32, _mulc
+
+# Group-discovery tally table width (a power of two; shared by the engine's
+# plain path, the CUDA kernel and the host-side sketch fold).
+TALLY_BUCKETS = 128
+_HASH_SALT_MUL = 2654435761
+_HASH_MIX_MUL = 2246822519
+
+
+def tally_hash(vals: torch.Tensor, salt, buckets: int) -> torch.Tensor:
+    """Salted multiplicative hash of f32 group values into ``[0, buckets)``:
+    ``((bits(v) ^ salt·2654435761) · 2246822519) >> (32 − log2 H)`` with
+    uint32 wraparound, as int64 (the reference's ``tally_hash``).
+
+    ``salt`` (the round number, an int or an integer tensor) re-buckets
+    every round, so two values that collide this round almost surely
+    separate next round.  PyTorch has no CPU right shift for uint32: the
+    bits are held in int64, masked to 32 bits, and the products split the
+    constants into 16-bit halves."""
+    lg = int(buckets).bit_length() - 1
+    if (1 << lg) != int(buckets):
+        raise ValueError("tally buckets must be a power of two")
+    u = vals.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & _M32
+    salt = torch.as_tensor(salt, device=vals.device).to(torch.int64) & _M32
+    h = _mulc(u ^ _mulc(salt, _HASH_SALT_MUL), _HASH_MIX_MUL)
+    return h >> (32 - lg)
+
+
+def sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the last dim as a pairwise tree of elementwise adds (zero-
+    padded to a power of two).  The order depends on the length of that dim
+    alone, so a row sums to the same bits whatever the tensor's other dims:
+    a grouped cell's sums equal its fan-out slot's bit for bit.  (PyTorch's
+    own reductions may take an order that follows the layout.)"""
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = torch.nn.functional.pad(x, (0, p - n))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
 
 
 def parse_ascii_ref(raw: torch.Tensor, num_cols: int) -> torch.Tensor:
@@ -62,9 +105,120 @@ def _slot_stats_from_cols(cols: torch.Tensor, b_eff: torch.Tensor, coeffs,
     mask = ok_s * gate.to(cols.dtype)[:, None, None]
     x = x * mask
     p = p * mask
-    out = torch.stack([ok_s.sum(-1), x.sum(-1), (x * x).sum(-1), p.sum(-1)],
-                      dim=-1)                                    # (S, W, 4)
+    out = torch.stack([sum_last(ok_s), sum_last(x), sum_last(x * x),
+                       sum_last(p)], dim=-1)                     # (S, W, 4)
     return out.permute(1, 0, 2).contiguous()
+
+
+def _group_stats_from_cols(cols: torch.Tensor, b_eff: torch.Tensor, coeffs,
+                           lo, hi, is_count, gate, gcol, gval, gact, salt,
+                           tally_buckets: int = TALLY_BUCKETS, weights=None):
+    """Grouped back half: decoded window (W, B, C) -> per-(worker, slot,
+    cell) stats (W, S, G, 4) and salted group tallies (W, S, 3, H).
+
+    Cell lanes are ``(rows matched, Σx, Σx², Σp)`` under the masking of
+    :func:`_slot_stats_from_cols`.  Every mask factor is an exact 0/1 float,
+    so a tracked cell's sums are those of a fan-out slot whose predicate
+    carries the group conjunct.  Cell G-1 is the ``__other__`` spill: the
+    complement of the tracked cells (a row matches at most one tracked
+    value), gated by its own live flag.  Tallies ``[Σp, Σp·v, Σp·v²]`` per
+    hash bucket of the group value v exist only while the slot's
+    ``__other__`` cell is live (it discovers groups)."""
+    w, b, c = cols.shape
+    x, p = eval_plan_ref(cols, coeffs, lo, hi)                   # (S, W, B)
+    x = torch.where(is_count[:, None, None] > 0.0, p, x)
+    if weights is None:
+        weights = torch.ones((x.shape[0],), dtype=torch.float32,
+                             device=cols.device)
+    bs = slot_budgets(b_eff, weights)                            # (S, W)
+    k = torch.arange(b, device=cols.device)
+    ok_s = (k[None, None, :] < bs[:, :, None]).to(cols.dtype)    # (S, W, B)
+    mask = ok_s * gate.to(cols.dtype)[:, None, None]
+    x = x * mask
+    p = p * mask
+    gcol_c = torch.clamp(gcol.long(), 0, c - 1)
+    colv = torch.movedim(cols, -1, 0)[gcol_c]                    # (S, W, B)
+    gvalf = gval.to(cols.dtype)
+    gactf = gact.to(cols.dtype)
+    eq = (colv[:, None] == gvalf[:, :, None, None]).to(cols.dtype)
+    trk = eq * gactf[:, :, None, None]                           # (S, G, W, B)
+    other = ((1.0 - torch.sum(trk[:, :-1], dim=1))
+             * gactf[:, -1][:, None, None])                      # (S, W, B)
+    ind = torch.cat([trk[:, :-1], other[:, None]], dim=1)        # (S, G, W, B)
+    gx = ind * x[:, None]
+    gp = ind * p[:, None]
+    cnt = sum_last(ind * mask[:, None])                          # (S, G, W)
+    out = torch.stack([cnt, sum_last(gx), sum_last(gx * gx), sum_last(gp)],
+                      dim=-1)                                    # (S, G, W, 4)
+    gstats = out.permute(2, 0, 1, 3).contiguous()                # (W, S, G, 4)
+
+    s_n, hb = colv.shape[0], int(tally_buckets)
+    h = tally_hash(colv, salt, hb)                               # (S, W, B)
+    pt = p * gactf[:, -1][:, None, None]
+    moments = torch.stack([pt, pt * colv, pt * colv * colv], -1)  # (S,W,B,3)
+    slot_ids = torch.arange(s_n, device=cols.device)[:, None, None]
+    w_ids = torch.arange(w, device=cols.device)[None, :, None]
+    flat = ((w_ids * s_n + slot_ids) * hb + h).reshape(-1)
+    tal = torch.zeros((w * s_n * hb, 3), dtype=cols.dtype,
+                      device=cols.device).index_add_(
+        0, flat, moments.reshape(-1, 3))
+    tal = tal.reshape(w, s_n, hb, 3).permute(0, 1, 3, 2).contiguous()
+    return gstats, tal
+
+
+def slot_extract_grouped_ref(packed: torch.Tensor, jw: torch.Tensor,
+                             idx: torch.Tensor, b_eff: torch.Tensor, coeffs,
+                             lo, hi, is_count, gate, gcol, gval, gact, salt,
+                             num_cols: int,
+                             tally_buckets: int = TALLY_BUCKETS,
+                             return_cols: bool = False, weights=None):
+    """Grouped fused extraction, plain version of
+    ``csrc/slot_extract_grouped.cu`` (packed residency):
+    :func:`slot_extract_ref`'s outputs plus per-cell stats and group
+    tallies -> ``(stats (W, S, 4), cols | None, gstats (W, S, G, 4),
+    tal (W, S, 3, H))``."""
+    raw = packed[jw.long()[:, None], idx.long()]                 # (W, B, rec)
+    cols = parse_ascii_ref(raw, num_cols)                        # (W, B, C)
+    stats = _slot_stats_from_cols(cols, b_eff, coeffs, lo, hi, is_count, gate,
+                                  weights)
+    gstats, tal = _group_stats_from_cols(cols, b_eff, coeffs, lo, hi,
+                                         is_count, gate, gcol, gval, gact,
+                                         salt, tally_buckets, weights)
+    return stats, (cols if return_cols else None), gstats, tal
+
+
+def _rows_stats(vals: torch.Tensor, coeffs, lo, hi,
+                valid: torch.Tensor) -> torch.Tensor:
+    """Decoded rows (L, R, C) with a validity count per leading row block
+    (L,) -> (L, Q, 4) = (rows valid, Σx, Σx², Σp) over the first
+    ``valid[l]`` rows; the count lane is broadcast over Q."""
+    x, p = eval_plan_ref(vals, coeffs, lo, hi)                   # (Q, L, R)
+    r = vals.shape[1]
+    ok = (torch.arange(r, device=vals.device)[None, :]
+          < valid.to(torch.int64)[:, None]).to(vals.dtype)       # (L, R)
+    x = x * ok[None]
+    p = p * ok[None]
+    cnt = sum_last(ok)[None].expand(x.shape[0], -1)              # (Q, L)
+    out = torch.stack([cnt, sum_last(x), sum_last(x * x), sum_last(p)],
+                      dim=-1)
+    return out.permute(1, 0, 2).contiguous()
+
+
+def chunk_agg_ref(raw: torch.Tensor, num_cols: int, coeffs, lo, hi,
+                  sizes: torch.Tensor) -> torch.Tensor:
+    """Full-chunk parse + evaluation + aggregate, plain version of
+    ``csrc/chunk_agg.cu``: raw (N, M, rec) uint8, sizes (N,) ->
+    (N, Q, 4) with ``out[j, q] = (m_valid, Σx, Σx², Σp)`` over the first
+    ``sizes[j]`` rows of chunk j."""
+    return _rows_stats(parse_ascii_ref(raw, num_cols), coeffs, lo, hi, sizes)
+
+
+def round_stats_ref(slab: torch.Tensor, num_cols: int, coeffs, lo, hi,
+                    b_eff: torch.Tensor) -> torch.Tensor:
+    """Budget-masked stats of a pre-gathered round slab, plain version of
+    ``csrc/round_stats.cu``: slab (W, B, rec) uint8, b_eff (W,) ->
+    (W, Q, 4) = (m, Σx, Σx², Σp) over rows ``< b_eff[w]``."""
+    return _rows_stats(parse_ascii_ref(slab, num_cols), coeffs, lo, hi, b_eff)
 
 
 def slot_extract_ref(packed: torch.Tensor, jw: torch.Tensor, idx: torch.Tensor,

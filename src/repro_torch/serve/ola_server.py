@@ -15,15 +15,21 @@ shared scan of the raw table:
   data, the server re-opens non-exhausted chunks and rewinds the schedule
   head; per-chunk permutation cursors continue;
 * **per-query plan selection** — :func:`select_plan` picks a strategy per
-  admitted query from the Eq. (4) cost terms.
+  admitted query from the Eq. (4) cost terms;
+* **online GROUP BY** — with ``EngineConfig(max_groups=...)`` a
+  ``Query(group_by=GroupBy(...))`` owns group cells in its slot; each
+  round's group tallies feed the slot's SpaceSaving sketch, its heavy
+  hitters are promoted into cells, and the answer arrives as
+  ``WorkloadResult.groups``.
 
 This package serves the unscheduled path on one device, with packed or
 streaming residency (``EngineConfig.residency``; the decoded-chunk cache
 with ``decoded_cache_bytes``).  A chunk whose reads fail for good is
 quarantined: the answers of every query live at or after that moment
 describe the surviving population and are flagged ``degraded``.  The SLO
-scheduler, the rollup tier, multi-device meshes and injected engines raise
-``NotImplementedError`` until their slices land.
+scheduler, the rollup tier (with its per-group cell mining), multi-device
+meshes and injected engines raise ``NotImplementedError`` until their slices
+land.
 """
 
 from __future__ import annotations
@@ -43,14 +49,18 @@ from repro_torch.core.engine import (
     SlotOLAEngine,
     quarantine_chunks,
     slot_stats_write,
+    zero_group_cells,
 )
+from repro_torch.core.groupby import GroupSketch, promote_values
 from repro_torch.core.queries import (
     PLAN_CODES,
+    GroupResult,
     Query,
     empty_slot_table,
     encode_slot,
     slot_table_clear,
     slot_table_set,
+    slot_table_set_groups,
 )
 from repro_torch.core.synopsis import BiLevelSynopsis
 from repro_torch.device import resolve_device
@@ -116,6 +126,11 @@ class ServerOptions:
     rollup: object = None
     mesh: object = None
     engine: object = None
+    # grouped discovery: the pure-tally mass (tuples) a slot's sketch must
+    # absorb before values are promoted into tracked cells.  Promotion is
+    # grow-only, so promoting off a few noisy early rounds would lock true
+    # heavy hitters out of the cells for good.
+    group_warmup_tuples: int = 1024
 
 
 @dataclasses.dataclass
@@ -160,6 +175,11 @@ class WorkloadResult:
     degraded: bool = False
     chunks_quarantined: int = 0
     read_retries: int = 0
+    # grouped answer (Query(group_by=...)): one GroupResult per live cell —
+    # the tracked values in discovery order, then the __other__ spill
+    # (is_other=True).  None for ungrouped queries; the scalar estimate
+    # above describes the query's base-predicate population either way.
+    groups: Optional[list[GroupResult]] = None
     explain: Optional[ExplainRecord] = dataclasses.field(
         default=None, compare=False, repr=False)
 
@@ -205,10 +225,18 @@ class OLAWorkloadServer:
                                     confidence=opts.confidence,
                                     device=self.device)
         self.rates = opts.measured_rates
+        # the table's group capacity follows the engine's (0: ungrouped)
+        self.max_groups = int(self.config.max_groups)
         self.table = empty_slot_table(max_slots, store.codec.num_cols,
-                                      device=self.device)
+                                      self.max_groups, device=self.device)
         self.state = self.engine.init_state()
         self.max_slots = max_slots
+        # per-slot online group discovery (grouped occupants only): the
+        # SpaceSaving sketch fed from each round's tallies, and the host's
+        # list of the slot's tracked values in discovery order
+        self._slot_sketch: list[Optional[GroupSketch]] = [None] * max_slots
+        self._slot_groups: list[Optional[list[float]]] = [None] * max_slots
+        self._group_warmup = int(opts.group_warmup_tuples)
         self.synopsis: Optional[BiLevelSynopsis] = None
         if opts.synopsis_budget_tuples > 0:
             self.synopsis = BiLevelSynopsis(
@@ -404,7 +432,13 @@ class OLAWorkloadServer:
         if plan is not None and plan not in PLAN_CODES:
             raise ValueError(
                 f"unknown plan {plan!r}; expected one of {sorted(PLAN_CODES)}")
-        row = encode_slot(query, self.store.codec.num_cols)  # validates early
+        if query.group_by is not None and self.max_groups == 0:
+            raise ValueError(
+                f"query {query.name!r} has group_by but the server was built "
+                f"ungrouped; construct it with EngineConfig(max_groups="
+                f"{query.group_by.max_groups}) or higher")
+        row = encode_slot(query, self.store.codec.num_cols,
+                          max_groups=self.max_groups)  # validates early
         if self.synopsis is None and not (
                 (self.state.scan_m.cpu().numpy()
                  < np.asarray(self.store.chunk_sizes))
@@ -471,7 +505,8 @@ class OLAWorkloadServer:
         df = self._decoded_fraction()
         plan = wq.plan or select_plan(self.store, self.config, wq.query,
                                       rates=self.rates, decoded_fraction=df)
-        row = wq.row or encode_slot(wq.query, self.store.codec.num_cols)
+        row = wq.row or encode_slot(wq.query, self.store.codec.num_cols,
+                                    max_groups=self.max_groups)
         row["plan"] = np.int32(PLAN_CODES[plan])
         self._refresh_synopsis()
         seed = self._mask_quarantined_seed(
@@ -489,6 +524,14 @@ class OLAWorkloadServer:
         self.slot_plan[s] = plan
         self.slot_seeded[s] = seeded
         self._slot_retries0[s] = self._pipeline_retries()
+        gb = wq.query.group_by
+        if gb is not None:
+            # a new occupant starts with empty cells (a previous grouped
+            # resident may have left rows behind); pinned values are live
+            # from the row write, the rest are discovered
+            self.state = zero_group_cells(self.state, s)
+            self._slot_sketch[s] = GroupSketch(max(2 * gb.max_groups, 8))
+            self._slot_groups[s] = [float(v) for v in (gb.values or ())]
         if wq.explain is not None:
             # the Eq. (4) pricing the plan was chosen under (population-
             # adjusted, decoded-cache-discounted)
@@ -513,6 +556,10 @@ class OLAWorkloadServer:
 
     def _try_retire_from_seed(self, s: int, wq: WorkloadQuery) -> bool:
         q = wq.query
+        if q.group_by is not None:
+            # a seed meets the scalar target at best; the group cells fill
+            # only from scan rounds, so a grouped query always scans
+            return False
         st = self.state.stats
         stats_row = st._replace(
             m=st.m[s], ysum=st.ysum[s][None], ysq=st.ysq[s][None],
@@ -550,6 +597,76 @@ class OLAWorkloadServer:
         stopped[s] = True
         self.state = self.state._replace(stopped=stopped)
         self.slot_wq[s] = None
+        self._slot_sketch[s] = None
+        self._slot_groups[s] = None
+
+    # ---------------------------------------------------------- grouping ----
+    def _group_results(self, rep, s: int,
+                       wq: WorkloadQuery) -> Optional[list[GroupResult]]:
+        """Slot ``s``'s grouped answer from the round report: one
+        :class:`GroupResult` per tracked value (discovery order) and the
+        ``__other__`` spill.  HAVING is judged per cell, host-side, on the
+        report's CI."""
+        q = wq.query
+        if q.group_by is None:
+            return None
+        tracked = self._slot_groups[s] or []
+        g_est, g_lo, g_hi, g_err = (t[s].cpu().numpy().astype(float) for t in
+                                    (rep.g_est, rep.g_lo, rep.g_hi, rep.g_err))
+        g_n = rep.g_n[s].cpu().numpy()
+        cells = [(i, float(v), False) for i, v in enumerate(tracked)]
+        cells.append((self.max_groups, float("nan"), True))
+        out = []
+        for i, value, is_other in cells:
+            decision = -1
+            if q.having is not None and int(g_n[i]) > 0:
+                decision = int(est.having_decision(
+                    float(g_lo[i]), float(g_hi[i]), q.having.op,
+                    q.having.threshold))
+            out.append(GroupResult(
+                value=value, estimate=float(g_est[i]), lo=float(g_lo[i]),
+                hi=float(g_hi[i]), err=float(g_err[i]), n=int(g_n[i]),
+                decision=decision, is_other=is_other))
+        return out
+
+    def _fold_group_discovery(self, rep) -> None:
+        """After a round, for every live grouped slot: fold the round's
+        tallies into its sketch, promote newly heavy values into free cells
+        (grow-only), and restart the ``__other__`` cell whenever the tracked
+        set grows (the spill's meaning shrank).  The tallies are read to the
+        host once a round, when a grouped slot is live."""
+        if self.max_groups == 0:
+            return
+        g_tal = None
+        stopped = self.state.stopped.cpu().numpy()
+        for s in range(self.max_slots):
+            wq = self.slot_wq[s]
+            if (wq is None or stopped[s] or wq.query.group_by is None
+                    or self._slot_sketch[s] is None):
+                continue
+            if g_tal is None:
+                g_tal = rep.g_tal.cpu().numpy()
+            sketch = self._slot_sketch[s]
+            sketch.fold(g_tal[s])
+            if sketch.mass < self._group_warmup:
+                continue    # the ranking is not trustworthy yet
+            gb = wq.query.group_by
+            tracked = self._slot_groups[s]
+            new = promote_values(sketch, tracked, gb.max_groups)
+            if not new:
+                continue
+            tracked.extend(float(v) for v in new)
+            g = self.max_groups + 1
+            gval = np.zeros((g,), np.float32)
+            gact = np.zeros((g,), np.float32)
+            gval[:len(tracked)] = np.asarray(tracked, np.float32)
+            gact[:len(tracked)] = 1.0
+            gact[g - 1] = 1.0   # __other__ stays live
+            self.table = slot_table_set_groups(self.table, s, gval, gact)
+            self.state = zero_group_cells(self.state, s, cells=[g - 1])
+            if self.tracer.enabled:
+                self.tracer.event("group_promote", qid=wq.qid, slot=s,
+                                  values=[float(v) for v in new])
 
     # ----------------------------------------------------------- top-up ----
     def _begin_topup_pass(self) -> bool:
@@ -613,6 +730,7 @@ class OLAWorkloadServer:
                 unserved=bad,
                 sched_outcome="queued" if wq.queued else "admitted",
                 queue_wait=float(self.slot_admit_t[s] - wq.arrival_t),
+                groups=None if bad else self._group_results(rep, s, wq),
                 **self._fault_fields(s)))
             self._release(s)
 
@@ -631,12 +749,25 @@ class OLAWorkloadServer:
         lo = rep.lo.cpu().numpy().astype(float)
         hi = rep.hi.cpu().numpy().astype(float)
         m_rows = self.state.stats.m.sum(dim=1).cpu().numpy()
+        g_est = g_lo = g_hi = None
         for s, wq in live:
             w = float(self._weights[s])
+            groups = None
+            if wq.query.group_by is not None:
+                if g_est is None:
+                    g_est, g_lo, g_hi = (t.cpu().numpy().astype(float) for t
+                                         in (rep.g_est, rep.g_lo, rep.g_hi))
+                tracked = self._slot_groups[s] or []
+                idx = list(range(len(tracked))) + [self.max_groups]
+                vals = [float(v) for v in tracked] + [float("nan")]
+                groups = tuple(
+                    (v, float(g_est[s, i]),
+                     float((g_hi[s, i] - g_lo[s, i]) / 2.0))
+                    for v, i in zip(vals, idx))
             wq.explain.record_round(RoundSample(
                 round=self.rounds, m=int(m_rows[s]), est=float(est_a[s]),
                 ci_halfwidth=float((hi[s] - lo[s]) / 2.0),
-                b_eff=int(round(float(b) * w)), weight=w))
+                b_eff=int(round(float(b) * w)), weight=w, groups=groups))
 
     def step(self) -> bool:
         """Admit ready arrivals, run one engine round, retire finished
@@ -661,6 +792,7 @@ class OLAWorkloadServer:
             with tr.span("estimate"):
                 self._record_trajectory(rep, b)
                 self._retire_finished(rep)
+                self._fold_group_discovery(rep)
                 if self._any_active() and bool(rep.exhausted):
                     if not self._begin_topup_pass():
                         # census complete: estimates are as good as they get

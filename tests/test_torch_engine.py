@@ -135,10 +135,14 @@ def test_worker_speeds_and_plan_claims(store8):
     dict(max_groups=2), dict(extract_backend="pallas")],
     ids=["stream", "decoded", "groups", "pallas"])
 def test_unported_options_raise(kw):
-    """GROUP BY and the Pallas backends stay unported; streaming residency
-    and its decoded cache build, and the cache without streaming is
-    refused."""
-    if kw.get("residency") == "stream":
+    """The Pallas backends stay unported; streaming residency, its decoded
+    cache and GROUP BY capacity build; the cache without streaming and a
+    negative group capacity are refused."""
+    if "max_groups" in kw:
+        assert t_eng.EngineConfig(**kw).max_groups == 2
+        with pytest.raises(ValueError):
+            t_eng.EngineConfig(max_groups=-1)
+    elif kw.get("residency") == "stream":
         cfg = t_eng.EngineConfig(decoded_cache_bytes=1 << 20, **kw)
         assert (cfg.residency, cfg.slab_row_tile, cfg.prefetch_lookahead,
                 cfg.prefetch_adaptive) == ("stream", 256, 8, False)

@@ -51,7 +51,9 @@ def _port_modules():
 def test_port_has_modules():
     names = {os.path.relpath(p, PKG) for p, _ in _port_modules()}
     for must in ("core/engine.py", "kernels/slot_extract.py",
-                 "serve/ola_server.py", "sampling/permutation.py"):
+                 "serve/ola_server.py", "sampling/permutation.py",
+                 "core/groupby.py", "kernels/slot_extract_grouped.py",
+                 "kernels/chunk_agg.py", "kernels/round_stats.py"):
         assert must in names
 
 
