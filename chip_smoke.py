@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py --kernels    # build, kernel checks and times only
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -10,20 +11,23 @@ either is missing or any phase fails.  Phases:
                sm_90a (one process per source, all started together).
 2. kernel    — each kernel against its plain PyTorch version on the card at
                the main path's shapes (W=4 workers, C=16 columns, S=8 slots,
-               B in {8, 64, 4096}, cache cap 128), with the tolerance stated
-               below, and three equalities bit for bit: the slab kernel on
-               chunks ``jw`` == the packed kernel on those ``jw``; the
+               cache cap 128) with the tolerance stated below, at every
+               window width of EDGE_B (a partial warp, one warp, more than
+               one, one tile, two tiles, the engine's budget_max and
+               beyond it), and three equalities bit for bit: the slab kernel
+               on chunks ``jw`` == the packed kernel on those ``jw``; the
                decoded kernel fed by ``extract_parse`` == the slab kernel on
                the raw rows; a mixed pair with complementary budgets == the
                single kernel.  The grouped kernel at the grouped deployment's
                shapes (W=4, S=4, G=9, C=4) and the main store's (C=16, S=8
-               with grouped, ungrouped and discovery-only slots), B in {8,
-               64, 4096}: against its plain version, tallies bit for bit,
-               and every tracked cell bit for bit equal to kernel 1 on its
+               with grouped, ungrouped and discovery-only slots), B in
+               EDGE_B: against its plain version, tallies bit for bit, and
+               every tracked cell bit for bit equal to kernel 1 on its
                group_fanout slot.  ``chunk_agg`` over the whole store with
                the deployment's plans (totals against float64 answers) and
                ``round_stats`` at (4, 4096, 256), each through its ``ops``
-               entry point.
+               entry point.  Every kernel launched three times on the same
+               inputs must give the same bits each time.
 3. server    — the deployment: the paper's synthetic dataset (§7.1; 16
                Zipf columns, column k with s = 0.25·k) as 256-byte ASCII
                records, 8,388,608 tuples (2 GiB) in 128 chunks of 65,536,
@@ -58,9 +62,13 @@ either is missing or any phase fails.  Phases:
                and a non-empty __other__ cell, the grouped kernel launched
                once per round and no other kernel.
 9. times     — each kernel's time per launch beside its bound and the plain
-               version's time, the mean server rounds, the kernel's share
-               of round time and the tally fold's, each beside the card's
-               name and power limit.
+               version's time, the device kernels each call runs (one for
+               slot_extract and slot_extract_grouped), the mean server
+               rounds, the kernel's share of round time and the tally
+               fold's, each beside the card's name and power limit.
+
+``--kernels`` runs phases 1, 2 and the kernel times of 9 on the same
+stores and exits 0 when they pass, printing no result lines.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -144,6 +152,13 @@ GROUP_TOP_K = 5
 # languages, the first four of the same queries
 LANE = dict(tuples=8192, chunks=12, langs=16, queries=4)
 
+# window widths of the kernel checks: a partial warp, one warp, a warp and
+# a bit, two warps, one tile of 256 positions, two tiles, the engine's
+# budget_max (4096, core/engine.py) and twice it
+EDGE_B = (1, 8, 31, 33, 64, 256, 257, 4096, 8192)
+# the kernels that run one device kernel per call
+ONE_LAUNCH = ("slot_extract", "slot_extract_grouped")
+
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
            slot_eval_decoded_cuda, extract_parse_cuda,
            slot_extract_grouped_cuda, chunk_agg_cuda, round_stats_cuda)
@@ -179,6 +194,27 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def same_bits(fn, what: str, first=None):
+    """``fn()`` three times on the same inputs (twice after ``first``, a
+    result of it already in hand): every tensor it returns must have the
+    same bits each time (a race, or a tile counter left set, would show).
+    Returns the first result."""
+    runs = [fn() if first is None else first] + [fn() for _ in range(2)]
+    torch.cuda.synchronize()
+
+    def flat(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [t for t in out if t is not None]
+
+    first = flat(runs[0])
+    for again in runs[1:]:
+        for a, b in zip(first, flat(again), strict=True):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"{what}: a repeated launch on the same "
+                                     "inputs gave other bits")
+    return runs[0]
 
 
 # ---------------------------------------------------------------- data ----
@@ -353,9 +389,9 @@ def kernel_inputs(packed: torch.Tensor, sizes: np.ndarray, b: int,
 def check_kernel(inputs, return_cols: bool) -> dict:
     packed, jw, idx, b_eff, coeffs, lo, hi, isc, gate, wts = inputs
     b = idx.shape[1]
-    got_stats, got_cols = slot_extract_cuda(
+    got_stats, got_cols = same_bits(lambda: slot_extract_cuda(
         packed, jw, idx, b_eff, coeffs, lo, hi, isc, gate, wts,
-        return_cols=return_cols)
+        return_cols=return_cols), f"slot_extract B={b}")
     ref_stats, ref_cols = slot_extract_ref(
         packed, jw, idx, b_eff, coeffs, lo, hi, isc, gate,
         num_cols=coeffs.shape[1], return_cols=return_cols, weights=wts)
@@ -385,7 +421,7 @@ def check_kernel(inputs, return_cols: bool) -> dict:
 def phase_kernel(packed: torch.Tensor, sizes: np.ndarray) -> list[dict]:
     rng = np.random.default_rng(3)
     rows = []
-    for b in (8, 64, 4096):
+    for b in EDGE_B:
         inputs = kernel_inputs(packed, sizes, b, rng)
         for rc in (False, True):
             r = check_kernel(inputs, rc)
@@ -393,7 +429,7 @@ def phase_kernel(packed: torch.Tensor, sizes: np.ndarray) -> list[dict]:
             log(f"[kernel] slot_extract B={b} return_cols={rc}: m lane equal;"
                 f" sums max rel err {r['max_rel_err_sums']:.3g} (rtol "
                 f"{r['rtol_sums']:.3g}); cols max abs err "
-                f"{r['max_abs_err_cols']}")
+                f"{r['max_abs_err_cols']}; 3 launches, same bits")
     return rows
 
 
@@ -435,23 +471,25 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
     rng = np.random.default_rng(13)
     out = {"stream": [], "decoded": [], "parse": []}
     c = packed.shape[2] // FIELD_BYTES
-    for b in (8, 64, 4096):
+    for b in EDGE_B:
         inputs = kernel_inputs(packed, sizes, b, rng)
         slab, idx, b_eff, plan, mb = stream_inputs(inputs)
         coeffs, lo, hi, isc, gate, wts = plan
         args = (idx, b_eff, coeffs, lo, hi, isc, gate, wts, mb)
-        got, rows = slot_extract_stream_cuda(slab, *args,
-                                             cache_cap=CACHE_CAP)
+        got, rows = same_bits(lambda: slot_extract_stream_cuda(
+            slab, *args, cache_cap=CACHE_CAP), f"slot_extract_stream B={b}")
         want = kref.slot_extract_stream_ref(slab, idx, b_eff, coeffs, lo, hi,
                                             isc, gate, num_cols=c,
                                             weights=wts)
         want_rows = kref.stream_cache_rows_ref(slab, idx, b_eff, mb,
                                                CACHE_CAP, c)
         w, r, rec = slab.shape
-        dec = extract_parse_cuda(slab.reshape(w * r, rec), c)
+        dec = same_bits(lambda: extract_parse_cuda(
+            slab.reshape(w * r, rec), c), "extract_parse")
         plain_dec = kref.parse_ascii_ref(slab.reshape(w * r, rec), c)
-        dstats, drows = slot_eval_decoded_cuda(dec.reshape(w, r, c), *args,
-                                               cache_cap=CACHE_CAP)
+        dstats, drows = same_bits(lambda: slot_eval_decoded_cuda(
+            dec.reshape(w, r, c), *args, cache_cap=CACHE_CAP),
+            f"slot_eval_decoded B={b}")
         dwant = kref.slot_eval_decoded_ref(dec.reshape(w, r, c), idx, b_eff,
                                            coeffs, lo, hi, isc, gate,
                                            weights=wts)
@@ -509,7 +547,8 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             f"within {parse_ulps:.0f} ulp (max abs err "
             f"{out['parse'][-1]['max_abs_err']})")
         log(f"[kernel] B={b}: bitwise: slab == packed, decoded(extract_parse)"
-            f" == slab, mixed pair == single (stats and cache rows)")
+            f" == slab, mixed pair == single (stats and cache rows); 3 "
+            f"launches of each kernel, same bits")
         del slab, dec, plain_dec
     return out
 
@@ -624,10 +663,11 @@ def phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes) -> list[dict]:
     for shape, packed, sizes in (("deployment", gpacked, gsizes),
                                  ("main", lpacked, lsizes)):
         c = packed.shape[2] // FIELD_BYTES
-        for b in (8, 64, 4096):
+        for b in EDGE_B:
             base, groups, salt = grouped_case(packed, sizes, b, rng, shape)
-            st, cols, gs, tal = slot_extract_grouped_cuda(
-                *base, *groups, salt, kref.TALLY_BUCKETS, return_cols=True)
+            st, cols, gs, tal = same_bits(lambda: slot_extract_grouped_cuda(
+                *base, *groups, salt, kref.TALLY_BUCKETS, return_cols=True),
+                f"slot_extract_grouped {shape} B={b}")
             pst, pcols, pgs, ptal = kref.slot_extract_grouped_ref(
                 *base[:9], *groups, salt, num_cols=c, return_cols=True,
                 weights=base[9])
@@ -663,7 +703,7 @@ def phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes) -> list[dict]:
                 f"{(2 * b + 16) * 2.0 ** -24:.3g}); tallies bit for bit "
                 f"({int(h['tal'][..., 0, :].sum())} rows tallied); "
                 f"{len(cells)} tracked cells == kernel 1 on their fan-out "
-                "slots, bit for bit")
+                "slots, bit for bit; 3 launches, same bits")
     return rows
 
 
@@ -723,6 +763,8 @@ def phase_rows_kernels(packed, sizes: np.ndarray, values: np.ndarray) -> dict:
     out = ops.chunk_agg(packed, sizes_t, *plan)
     torch.cuda.synchronize()
     agg_launches = chunk_agg_cuda.launches
+    same_bits(lambda: ops.chunk_agg(packed, sizes_t, *plan), "chunk_agg",
+              first=out)
     plain = plain_chunk_agg(packed, sizes_t, plan)
     torch.cuda.synchronize()
     got, want = out.cpu().numpy(), plain.cpu().numpy()
@@ -761,6 +803,8 @@ def phase_rows_kernels(packed, sizes: np.ndarray, values: np.ndarray) -> dict:
     rs = ops.round_stats(slab, b_eff, *plan)
     torch.cuda.synchronize()
     rs_launches = round_stats_cuda.launches
+    same_bits(lambda: ops.round_stats(slab, b_eff, *plan), "round_stats",
+              first=rs)
     prs = kref.round_stats_ref(slab, rec // FIELD_BYTES, *plan, b_eff)
     rs_rel = check_sums(rs.cpu().numpy(), prs.cpu().numpy(), 4096,
                         "round_stats")
@@ -1362,9 +1406,11 @@ def kernel_bound_ms(w: int, b: int, c: int, s: int, return_cols: bool):
 
 
 def device_ms(fn, iters: int, match: tuple):
-    """Mean device ms per call of the kernels whose name contains one of
-    ``match``, from a ``torch.profiler`` (CUPTI) trace of ``iters`` calls;
-    None when the trace holds no device time for them."""
+    """(mean device ms per call of the kernels whose name contains one of
+    ``match``, device kernels per call) from a ``torch.profiler`` (CUPTI)
+    trace of ``iters`` calls; (None, None) when the trace holds no device
+    time for them.  The count takes every device activity of the trace
+    (kernels, copies, fills): the calls are all the trace runs."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
@@ -1373,17 +1419,38 @@ def device_ms(fn, iters: int, match: tuple):
         for i in range(iters):
             fn(i)
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in on_device
              if any(m in e.key for m in match))
-    return us / 1e3 / iters if us > 0 else None
+    if us <= 0:
+        return None, None
+    return us / 1e3 / iters, sum(e.count for e in on_device) / iters
+
+
+def one_launch(name: str, per_call) -> None:
+    """A redesigned kernel must run one device kernel per call."""
+    if name in ONE_LAUNCH and per_call is not None and per_call != 1:
+        raise AssertionError(f"{name}: {per_call} device kernels per call, "
+                             "expected 1")
+
+
+def timed_calls(name: str, fn, iters: int, match: tuple) -> dict:
+    """Device ms per call and device kernels per call (profiler), and the
+    wall per call with the wrapper's host work (CUDA events)."""
+    ms, per_call = device_ms(fn, iters, match)
+    one_launch(name, per_call)
+    return dict(device_ms=ms, kernels_per_call=per_call,
+                call_ms=time_cuda(fn, iters))
 
 
 def phase_times(packed: torch.Tensor, sizes: np.ndarray, rungs: list,
-                wall_s: float) -> dict:
+                wall_s: float | None) -> dict:
     rng = np.random.default_rng(5)
     c = packed.shape[2] // FIELD_BYTES
-    per_rung, per_call, sets = {}, {}, {}
-    for b in sorted(set(rungs) | {4096}):
+    per_rung, per_call, sets, kernels = {}, {}, {}, {}
+    for b in sorted(set(rungs) | {8, 4096}):
         # 16 input sets over distinct chunks, cycled, so a launch does not
         # find its window rows in L2 from the launch before
         sets[b] = []
@@ -1395,11 +1462,12 @@ def phase_times(packed: torch.Tensor, sizes: np.ndarray, rungs: list,
         def call(i, b=b):
             return slot_extract_cuda(*sets[b][i % 16], return_cols=True)
 
-        # device time of the two kernels, and the wall per call with the
-        # wrapper's host work (checks, allocation, ctypes) included
-        per_rung[b] = device_ms(call, 200, ("slot_extract_blocks",
-                                            "reduce_partials"))
-        per_call[b] = time_cuda(call, 200)
+        # device time of the kernel and the device kernels per call, and
+        # the wall per call with the wrapper's host work (checks,
+        # allocation, ctypes) included
+        t = timed_calls("slot_extract", call, 200, ("slot_extract_tiles",))
+        per_rung[b], kernels[b], per_call[b] = (
+            t["device_ms"], t["kernels_per_call"], t["call_ms"])
 
     def plain(i):
         (p, jw, idx, be, co, lo, hi, isc, gate, wts) = sets[4096][i % 16]
@@ -1408,14 +1476,17 @@ def phase_times(packed: torch.Tensor, sizes: np.ndarray, rungs: list,
 
     plain_ms = time_cuda(plain, 20)
     bound_ms, bound_by = kernel_bound_ms(4, 4096, c, 8, True)
-    timed = per_rung if all(v is not None for v in per_rung.values()) \
-        else per_call
-    kernel_s = sum(timed[b] for b in rungs) / 1e3
-    return dict(ms=timed[4096], call_ms=per_call, device_ms=per_rung,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                round_ms=wall_s / len(rungs) * 1e3,
-                kernel_share=kernel_s / wall_s,
-                share_source="device" if timed is per_rung else "call")
+    out = dict(ms=per_rung[4096], call_ms=per_call, device_ms=per_rung,
+               kernels_per_call=kernels, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bounds={b: kernel_bound_ms(4, b, c, 8, True)[0]
+                       for b in per_rung},
+               round_ms=None, kernel_share=None)
+    if wall_s is not None:
+        out["round_ms"] = wall_s / len(rungs) * 1e3
+        if all(per_rung[b] is not None for b in rungs):
+            out["kernel_share"] = sum(per_rung[b] for b in rungs) / 1e3 / wall_s
+    return out
 
 
 def bound(nbytes: float, ops_: float) -> tuple[float, str]:
@@ -1466,11 +1537,10 @@ def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             return slot_eval_decoded_cuda(dec, *args, cache_cap=CACHE_CAP)
 
         match = ("stream_blocks", "reduce_partials")
-        out[("slot_extract_stream", b)] = dict(
-            device_ms=device_ms(raw, 200, match), call_ms=time_cuda(raw, 200))
-        out[("slot_eval_decoded", b)] = dict(
-            device_ms=device_ms(decoded, 200, match),
-            call_ms=time_cuda(decoded, 200))
+        out[("slot_extract_stream", b)] = timed_calls(
+            "slot_extract_stream", raw, 200, match)
+        out[("slot_eval_decoded", b)] = timed_calls(
+            "slot_eval_decoded", decoded, 200, match)
         if b == 4096:
             def plain_raw(i):
                 slab, _, (idx, be, co, lo, hi, isc, gate, wts, mb) = \
@@ -1505,8 +1575,7 @@ def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
 
     t = int(sizes[0])
     out[("extract_parse", t)] = dict(
-        device_ms=device_ms(parse, 100, ("parse_rows",)),
-        call_ms=time_cuda(parse, 100),
+        **timed_calls("extract_parse", parse, 100, ("parse_rows",)),
         plain_ms=time_cuda(lambda i: kref.parse_ascii_ref(chunks[i % 16], c),
                            10),
         bound=bound(t * rec + t * c * 4, t * c * (14 * 2 + 3)))
@@ -1559,9 +1628,8 @@ def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
             return slot_extract_grouped_cuda(*base, *groups, salt, h)
 
         rows_read = int(sets[0][0][3].sum())
-        v = dict(device_ms=device_ms(call, 200, ("grouped_blocks",
-                                                 "grouped_reduce")),
-                 call_ms=time_cuda(call, 200),
+        v = dict(**timed_calls("slot_extract_grouped", call, 200,
+                               ("grouped_tiles",)),
                  bound=grouped_bound_ms(4, b, c, 4, 9, h, False),
                  rows=rows_read)
         if b == 4096:
@@ -1588,8 +1656,9 @@ def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
     end.record()
     torch.cuda.synchronize()
     out[("chunk_agg", n)] = dict(
-        device_ms=device_ms(agg, 20, ("chunk_agg_blocks", "reduce_partials")),
-        call_ms=time_cuda(agg, 20), plain_ms=start.elapsed_time(end),
+        **timed_calls("chunk_agg", agg, 20, ("chunk_agg_blocks",
+                                             "reduce_partials")),
+        plain_ms=start.elapsed_time(end),
         bound=rows_bound_ms(int(sizes.sum()), n, cc, q))
     sets = []
     for _ in range(16):
@@ -1607,9 +1676,9 @@ def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
         return kref.round_stats_ref(slab, cc, *plan, be)
 
     out[("round_stats", 4096)] = dict(
-        device_ms=device_ms(rs, 200, ("round_stats_blocks",
-                                      "reduce_partials")),
-        call_ms=time_cuda(rs, 200), plain_ms=time_cuda(prs, 20),
+        **timed_calls("round_stats", rs, 200, ("round_stats_blocks",
+                                               "reduce_partials")),
+        plain_ms=time_cuda(prs, 20),
         bound=rows_bound_ms(4 * 4096, 4, cc, q))
     return out
 
@@ -1673,8 +1742,89 @@ def phase_profile(store, values, rounds: int = 200) -> None:
         profile_rounds(server, rounds, "packed")
 
 
+def us(t) -> str:
+    """ms as µs for a log line, or "not measured"."""
+    return "not measured" if t is None else f"{t * 1e3:.2f}"
+
+
+def measured(device: float | None, call: float) -> dict:
+    """A kernel's ms for the result line: its device time from the
+    profiler, or, where the profiler saw none, the wall per call from
+    CUDA events, named as such."""
+    if device is not None:
+        return {"ms": device, "ms_source": "device (profiler)"}
+    return {"ms": call, "ms_source": "wall per call (CUDA events)"}
+
+
+def report_times(card: str, times: dict, stimes: dict, gtimes: dict,
+                 dep: dict | None, gdep: dict | None) -> None:
+    """Log every kernel's times beside its bound, its plain version, the
+    device kernels per call and its launches per deployment round (None:
+    the deployments did not run)."""
+    def kernels(v) -> str:
+        k = v.get("kernels_per_call")
+        return ("device kernels per call not measured" if k is None
+                else f"{k:g} device kernel(s) per call")
+
+    log(f"[times] {card}: slot_extract at W=4 B=4096 C=16 S=8 with cols: "
+        f"{us(times['device_ms'][4096])} us device time per launch "
+        f"(profiler); {us(times['call_ms'][4096])} us per call with the "
+        f"wrapper's host work (CUDA events); bound "
+        f"{times['bound_ms'] * 1e3:.3f} us ({times['bound_by']}); plain "
+        f"version {times['plain_ms'] * 1e3:.1f} us")
+    log(f"[times] {card}: slot_extract device us per launch by B: "
+        + ", ".join(f"B={b}: {us(t)} (bound {times['bounds'][b] * 1e3:.3f})"
+                    for b, t in times["device_ms"].items()))
+    log(f"[times] {card}: slot_extract us per call by B: "
+        + ", ".join(f"B={b}: {us(t)}" for b, t in times["call_ms"].items()))
+    log(f"[times] {card}: slot_extract device kernels per call by B: "
+        + ", ".join(f"B={b}: {'not measured' if k is None else f'{k:g}'}"
+                    for b, k in times["kernels_per_call"].items()))
+    if times["round_ms"] is not None:
+        share = ("not measured" if times["kernel_share"] is None
+                 else f"{100 * times['kernel_share']:.3f}%")
+        log(f"[times] {card}: server mean round {times['round_ms']:.3f} ms; "
+            f"kernel share of round time {share} (device time per B x "
+            f"rounds at each B / server wall)")
+    for (name, b), v in stimes.items():
+        shape = (f"T={b} rows" if name == "extract_parse"
+                 else f"W=4 B={b} C=16 S=8 cap={CACHE_CAP}")
+        plain = v.get("plain_ms")
+        per_round = ("" if dep is None else
+                     f"; {dep['launches'][name] / dep['rounds']:.4f} launches"
+                     " per stream-deployment round")
+        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
+            f"device time per launch (profiler), {kernels(v)}; "
+            f"{us(v['call_ms'])} us per call with the wrapper (CUDA events); "
+            f"bound {v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain "
+            f"version {us(plain)}{'' if plain is None else ' us'}"
+            f"{per_round}")
+    for (name, b), v in gtimes.items():
+        shape = {"slot_extract_grouped": f"W=4 B={b} C=4 S=4 G=9 H=128",
+                 "chunk_agg": f"N={b} chunks, C=16 Q=8",
+                 "round_stats": f"W=4 B={b} C=16 Q=8"}[name]
+        plain = v.get("plain_ms")
+        per_round = ""
+        if gdep is not None:
+            n = gdep["launches"] if name == "slot_extract_grouped" else 0
+            per_round = (f"; {n / gdep['rounds']:.4f} launches per "
+                         "grouped-deployment round")
+        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
+            f"device time per launch (profiler), {kernels(v)}; "
+            f"{us(v['call_ms'])} us per call with the wrapper (CUDA events); "
+            f"bound {v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain "
+            f"version {us(plain)}{'' if plain is None else ' us'}"
+            f"{per_round}")
+
+
 # ---------------------------------------------------------------- main ----
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="build, kernel checks and kernel times only")
+    kernels_only = ap.parse_args(argv).kernels
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this smoke runs on the GPU only", file=sys.stderr)
@@ -1715,9 +1865,17 @@ def main() -> int:
     gchecks = phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes)
     del lpacked
     rows = phase_rows_kernels(packed, np.asarray(sizes), values)
+    if kernels_only:
+        sizes = np.asarray(sizes)
+        report_times(card, phase_times(packed, sizes, [8, 4096], None),
+                     phase_stream_times(packed, sizes),
+                     phase_grouped_times(gpacked, gsizes, packed, sizes, rows),
+                     None, None)
+        log("[done] --kernels: build, kernel checks and times passed")
+        return 0
     del packed
     srv = phase_server(store, values)
-    srv_rungs, launches = srv["rungs"], srv["launches"]
+    launches = srv["launches"]
     phase_parity()
     phase_stream_parity()
     times = phase_times(srv["packed"], srv["sizes"], srv["rungs"],
@@ -1739,53 +1897,13 @@ def main() -> int:
     with run_grouped_server(gstore, "cuda") as server:
         profile_rounds(server, PROFILE_ROUNDS, "grouped")
 
-    def us(t):
-        return "not measured" if t is None else f"{t * 1e3:.2f}"
-
-    log(f"[times] {card}: slot_extract at W=4 B=4096 C=16 S=8 with cols: "
-        f"{us(times['device_ms'][4096])} us device time per launch (both "
-        f"kernels, profiler); {us(times['call_ms'][4096])} us per call with "
-        f"the wrapper's host work (CUDA events); bound "
-        f"{times['bound_ms'] * 1e3:.3f} us ({times['bound_by']}); plain "
-        f"version {times['plain_ms'] * 1e3:.1f} us")
-    log(f"[times] {card}: device us per launch by rung: "
-        + ", ".join(f"B={b}: {us(t)}" for b, t in times["device_ms"].items()))
-    log(f"[times] {card}: us per call by rung: "
-        + ", ".join(f"B={b}: {us(t)}" for b, t in times["call_ms"].items()))
-    log(f"[times] {card}: server mean round {times['round_ms']:.3f} ms over "
-        f"{len(srv_rungs)} rounds; kernel share of round time "
-        f"{100 * times['kernel_share']:.3f}% ({times['share_source']} time "
-        f"per rung x rounds at each rung / server wall)")
-    for (name, b), v in stimes.items():
-        shape = (f"T={b} rows" if name == "extract_parse"
-                 else f"W=4 B={b} C=16 S=8 cap={CACHE_CAP}")
-        plain = v.get("plain_ms")
-        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
-            f"device time per launch (profiler); {us(v['call_ms'])} us per "
-            f"call with the wrapper (CUDA events); bound "
-            f"{v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain version "
-            f"{'not measured' if plain is None else us(plain)} us; "
-            f"{dep['launches'][name] / dep['rounds']:.4f} launches per "
-            f"stream-deployment round")
-    per_round = {"slot_extract_grouped": gdep["launches"] / gdep["rounds"],
-                 "chunk_agg": 0.0, "round_stats": 0.0}
-    for (name, b), v in gtimes.items():
-        shape = {"slot_extract_grouped": f"W=4 B={b} C=4 S=4 G=9 H=128",
-                 "chunk_agg": f"N={b} chunks, C=16 Q=8",
-                 "round_stats": f"W=4 B={b} C=16 Q=8"}[name]
-        plain = v.get("plain_ms")
-        log(f"[times] {card}: {name} at {shape}: {us(v['device_ms'])} us "
-            f"device time per launch (profiler); {us(v['call_ms'])} us per "
-            f"call with the wrapper (CUDA events); bound "
-            f"{v['bound'][0] * 1e3:.3f} us ({v['bound'][1]}); plain version "
-            f"{'not measured' if plain is None else us(plain)} us; "
-            f"{per_round[name]:.4f} launches per grouped-deployment round")
+    report_times(card, times, stimes, gtimes, dep, gdep)
     log("[done]")
 
     def timed(name, b):
         v = stimes.get((name, b)) or gtimes[(name, b)]
-        ms = v["device_ms"] if v["device_ms"] is not None else v["call_ms"]
-        return dict(ms=ms, plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+        return dict(**measured(v["device_ms"], v["call_ms"]),
+                    plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
                     bound_by=v["bound"][1], library_ms=None)
 
     t_rows = int(store.chunk_sizes[0])
@@ -1797,7 +1915,8 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),
         "max_rel_err_sums": max(r["max_rel_err_sums"] for r in checks),
-        "ms": times["ms"], "plain_ms": times["plain_ms"],
+        **measured(times["ms"], times["call_ms"][4096]),
+        "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"], "bound_by": times["bound_by"],
         "library_ms": None,
     }, {

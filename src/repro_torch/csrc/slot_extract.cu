@@ -10,96 +10,81 @@
 // Slot s counts window position k iff k < min(ceil(f32(w_s)·f32(b_eff)),
 // b_eff); the gate multiplies x and p (not the m lane).
 //
-// Design.  The TPU kernel runs one grid step per worker and pulls the whole
-// chunk into VMEM; with W = 4 that would leave 128 of the 132 SMs idle.
-// Here the grid is (ceil(B/TB), W): each thread owns one window row, parses
-// its 16-byte fields with one 16-byte load each (slot_common.cuh:
-// parse_field, the TPU kernel's arithmetic), evaluates every slot (the
-// linear expression in the plain version's summation order), and the block
-// reduces its rows with warp shuffles and a fixed-order pass over warps.  A
-// second kernel sums the per-block partials in block order.  There are no
-// float atomics, so the result is the same from run to run, and the same
-// bits as slot_extract_stream.cu gives for the same rows.
+// What bounds it on the H100.  Not bytes: at W=4, B=4096, C=16 the kernel
+// reads 4 MiB of rows and writes 1 MiB of cols, 1.6 µs at 3.35 TB/s; at the
+// deployments' B = 8 it reads 8 KiB.  What is left is latency: the launch,
+// the two dependent trips to device memory (window indices, then random
+// rows), the parse and the slot reductions of one short window, and, past
+// one tile, the fold across tiles.  The first port ran two launches (blocks,
+// then a block-order pass over their partials), a 256-thread block whatever
+// B was, one warp evaluating all S slots after another, and had each thread
+// read its own 256-byte row field after field: 17.0-17.4 µs at B = 8
+// (H100 80GB HBM3 at 700 W, chip_smoke.py).
 //
-// Bound on the card: at W=4, B=4096, C=16 the kernel reads 4 MiB of rows and
-// writes 1 MiB of cols, about 1.6 µs at 3.35 TB/s; in practice the two
-// launches' latency is the bound.  A thread reads its own 256-byte row, so
-// neighbouring threads do not load neighbouring addresses (uncoalesced);
-// staging rows through shared memory with coalesced loads is left for a
-// later change.
+// Design (slot_tile.cuh).  One launch for every B.  A block is one tile of
+// 256 window positions of one worker: a warp per 32 of its positions,
+// repeated so that the slots are shared over up to 16 warps (B = 8: eight
+// warps, one slot each).  It reads the window indices, then puts every
+// 16-byte field of every live row in flight at once with cp.async
+// (coalesced: neighbouring threads copy neighbouring words of a row) and
+// loads the plan meanwhile; each thread parses the words it copied.  The
+// range predicate is taken without branches.  Sums follow slot_common.cuh's
+// order (warp shuffles, warps in order, tiles in order): a one-tile window
+// is written directly, a longer one is folded by the worker's last block
+// through an integer counter.  No float atomics: the bits repeat from run
+// to run and equal slot_extract_stream.cu's on the same rows.  The decoded
+// window (cols) is written coalesced from shared memory.  Widths C = 4 and
+// 16 are compiled with the row in registers; any other C reads it from
+// shared memory.  chip_smoke.py times it beside its bound.
 
-#include "slot_common.cuh"
+#include "slot_tile.cuh"
 
 using namespace slot;
 
 namespace {
 
-__global__ void slot_extract_blocks(
-    const uint8_t* __restrict__ packed, long long n_chunks, long long m_max,
-    int num_cols, const int* __restrict__ jw, const int* __restrict__ idx,
-    const int* __restrict__ b_eff, const float* __restrict__ coeffs,
-    const float* __restrict__ lo, const float* __restrict__ hi,
-    const float* __restrict__ is_count, const float* __restrict__ gate,
-    const float* __restrict__ weights, int B, int S,
-    float* __restrict__ partials, float* __restrict__ cols) {
-  extern __shared__ float smem[];
-  const int C = num_cols;
-  const Smem m = carve(smem, C, S);
-  const int w = blockIdx.y;
-  const int blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  load_plan(m, coeffs, lo, hi, is_count, gate, weights, b_eff[w], C, S);
-
-  // gather + parse this thread's window row
-  const int k = blk * kThreads + tid;
-  float* v = m.vals + tid * m.cs;
-  const int j = jw[w];
-  bool have = false;
-  if (k < B && j >= 0 && j < n_chunks) {
-    const int row = idx[(long long)w * B + k];
-    if (row >= 0 && row < m_max) {
-      have = true;
-      parse_record(packed + ((long long)j * m_max + row) * (long long)(C * kFieldBytes),
-                   C, v);
-    }
-  }
-  if (!have)
-    for (int c = 0; c < C; ++c) v[c] = 0.0f;
-  if (cols != nullptr && k < B) {
-    float* out = cols + ((long long)w * B + k) * C;
-    for (int c = 0; c < C; ++c) out[c] = v[c];
-  }
-  eval_reduce(m, v, k, B, C, S, partials + ((long long)w * gridDim.x + blk) * S * 4);
+template <int CT>
+__global__ void __launch_bounds__(32 * tile::kMaxWarps) slot_extract_tiles(const tile::Args a) {
+  tile::body<CT, false>(a);
 }
+
+int smem_set[3];
 
 }  // namespace
-
-extern "C" size_t slot_extract_smem_bytes(int num_cols, int S) {
-  return smem_bytes(num_cols, S);
-}
 
 extern "C" int slot_extract_launch(
     const uint8_t* packed, long long n_chunks, long long m_max, int num_cols,
     const int* jw, const int* idx, const int* b_eff, const float* coeffs,
     const float* lo, const float* hi, const float* is_count, const float* gate,
-    const float* weights, int W, int B, int S, float* partials, float* stats,
-    float* cols, void* stream) {
+    const float* weights, int W, int B, int S, float* stats, float* cols,
+    float* scratch, int* counters, void* stream) {
+  tile::Args a{};
+  a.packed = packed;
+  a.n_chunks = n_chunks;
+  a.m_max = m_max;
+  a.C = num_cols;
+  a.W = W;
+  a.B = B;
+  a.S = S;
+  a.jw = jw;
+  a.idx = idx;
+  a.b_eff = b_eff;
+  a.coeffs = coeffs;
+  a.lo = lo;
+  a.hi = hi;
+  a.is_count = is_count;
+  a.gate = gate;
+  a.weights = weights;
+  a.stats = stats;
+  a.cols = cols;
+  a.scratch = scratch;
+  a.counters = counters;
+  if (tile::tiles(B) > 1 && (scratch == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (B + kThreads - 1) / kThreads;
-  const size_t smem = smem_bytes(num_cols, S);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        slot_extract_blocks, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  slot_extract_blocks<<<dim3(nblk, W), kThreads, smem, st>>>(
-      packed, n_chunks, m_max, num_cols, jw, idx, b_eff, coeffs, lo, hi,
-      is_count, gate, weights, B, S, partials, cols);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  reduce_partials<<<W, reduce_threads(S), 0, st>>>(partials, nblk, S, stats);
-  return (int)cudaGetLastError();
+  if (num_cols == 16) return tile::launch(slot_extract_tiles<16>, a, false, &smem_set[0], st);
+  if (num_cols == 4) return tile::launch(slot_extract_tiles<4>, a, false, &smem_set[1], st);
+  return tile::launch(slot_extract_tiles<0>, a, false, &smem_set[2], st);
 }
 
-extern "C" int slot_extract_threads_per_block() { return kThreads; }
+extern "C" int slot_extract_tile_rows() { return tile::kTileRows; }

@@ -20,9 +20,9 @@
 // tile's window rows with a 0/1 membership matmul, because a TPU core
 // cannot gather rows.  Window rows are distinct, so a direct gather gives
 // the same sums: here the grid is (ceil(B/TB), W) with one window row per
-// thread, exactly as slot_extract.cu, and the parse, slot evaluation, warp
-// and block reduction and the block-order second pass are the same code
-// (slot_common.cuh).  A streamed raw round therefore gives the same float
+// thread, and the parse, slot evaluation, warp and block reduction and the
+// block-order second pass are slot_common.cuh's, whose order slot_extract.cu
+// keeps too.  A streamed raw round therefore gives the same float
 // bits as a packed round over the same rows, and a decoded round fed by
 // extract_parse.cu (the same parse_field) the same bits again.  The cache
 // rows are written by the thread that holds the window position; no float
@@ -32,8 +32,8 @@
 // reads 4 MiB of window rows and writes 32 KiB of cache rows, about 1.3 µs
 // at 3.35 TB/s; the decoded kernel reads 1 MiB of decoded rows, about
 // 0.35 µs.  At the deployment's B = 8 the two launches' latency is the
-// bound.  Row loads are uncoalesced (one thread, one record), as in
-// slot_extract.cu.
+// bound.  Row loads are uncoalesced (one thread, one record);
+// slot_tile.cuh stages rows coalesced with cp.async.
 
 #include "slot_common.cuh"
 

@@ -2,9 +2,11 @@
 the TPU kernel ``repro/kernels/slot_extract.py::slot_extract_grouped_pallas``).
 
 :func:`slot_extract_grouped_cuda` checks its inputs, allocates the outputs
-and the per-block scratch with ``torch.empty``, launches the two kernels on
-the current stream, and raises if the launch is refused.  It never falls
-back to the plain version
+(and, for a window longer than one tile, the per-tile scratch) with
+``torch.empty``, launches the one kernel on the current stream, and raises
+if the launch is refused.  The geometry, the scratch and the tile counters
+are :mod:`repro_torch.kernels.slot_extract`'s.  It never falls back to the
+plain version
 (:func:`repro_torch.kernels.ref.slot_extract_grouped_ref`), which
 :func:`repro_torch.kernels.ops.slot_extract` takes for CPU tensors only.
 ``slot_extract_grouped_cuda.launches`` counts the calls that launched the
@@ -19,13 +21,22 @@ import torch
 
 from repro_torch.data.formats import FIELD_BYTES
 from repro_torch.kernels import _build
-from repro_torch.kernels.slot_extract import _check, _check_plan, _check_window
+from repro_torch.kernels.slot_extract import (
+    TILE_ROWS,
+    _check,
+    _check_packed,
+    _check_plan,
+    _check_window,
+    scratch_lanes,
+    tile_counters,
+    tile_scratch,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P, ctypes.c_longlong, ctypes.c_longlong, _I,
              _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P]
+             _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P]
 
 
 def _lib():
@@ -33,8 +44,11 @@ def _lib():
     if lib.slot_extract_grouped_launch.argtypes is None:
         lib.slot_extract_grouped_launch.argtypes = _ARGTYPES
         lib.slot_extract_grouped_launch.restype = ctypes.c_int
-        lib.slot_extract_grouped_threads_per_block.argtypes = []
-        lib.slot_extract_grouped_threads_per_block.restype = ctypes.c_int
+        lib.slot_extract_grouped_tile_rows.argtypes = []
+        lib.slot_extract_grouped_tile_rows.restype = ctypes.c_int
+        if lib.slot_extract_grouped_tile_rows() != TILE_ROWS:
+            raise RuntimeError("slot_extract_grouped.cu's tile size differs "
+                               "from TILE_ROWS")
     return lib
 
 
@@ -55,8 +69,7 @@ def slot_extract_grouped_cuda(packed: torch.Tensor, jw: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"slot_extract_grouped_cuda needs CUDA tensors, "
                          f"got {dev}")
-    _check(packed, "packed", torch.uint8, 3, dev)
-    n, m_max, rec = packed.shape
+    n, m_max, rec = _check_packed(packed, dev)
     s, c = _check_plan(coeffs, lo, hi, is_count, gate, weights, dev)
     if rec != c * FIELD_BYTES:
         raise ValueError(f"record width {rec} != {FIELD_BYTES} x {c} columns")
@@ -71,31 +84,33 @@ def slot_extract_grouped_cuda(packed: torch.Tensor, jw: torch.Tensor,
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"({s}, G)")
     g, h = gval.shape[1], int(tally_buckets)
-    lib = _lib()
-    tb = lib.slot_extract_grouped_threads_per_block()
     if w == 0 or b == 0 or s == 0 or g == 0:
         raise ValueError("slot_extract_grouped_cuda needs W, B, S, G >= 1")
-    if h < 2 or h > tb or h & (h - 1):
-        raise ValueError(f"tally_buckets must be a power of two in [2, {tb}]")
-    nblk = (b + tb - 1) // tb
+    if h < 2 or h > TILE_ROWS or h & (h - 1):
+        raise ValueError(f"tally_buckets must be a power of two in "
+                         f"[2, {TILE_ROWS}]")
+    lib = _lib()
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    partials, gpartials = f32(w, nblk, s, 4), f32(w, nblk, s, g, 4)
-    tpartials = f32(w, nblk, s, 3, h)
+    # per call: the outputs and, past one tile, the scratch (torch.empty,
+    # no device work); the counters are made once per stream
     stats, gstats, tal = f32(w, s, 4), f32(w, s, g, 4), f32(w, s, 3, h)
     cols = f32(w, b, c) if return_cols else None
+    scratch = tile_scratch(w, b, scratch_lanes(s, g, h), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = tile_counters(w, dev, stream)
         err = lib.slot_extract_grouped_launch(
             packed.data_ptr(), n, m_max, c, jw.data_ptr(), idx.data_ptr(),
             b_eff.data_ptr(), coeffs.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             is_count.data_ptr(), gate.data_ptr(), weights.data_ptr(),
             gcol.data_ptr(), gval.data_ptr(), gact.data_ptr(), salt.data_ptr(),
-            w, b, s, g, h, partials.data_ptr(), gpartials.data_ptr(),
-            tpartials.data_ptr(), stats.data_ptr(), gstats.data_ptr(),
-            tal.data_ptr(), 0 if cols is None else cols.data_ptr(), stream)
+            w, b, s, g, h, stats.data_ptr(), gstats.data_ptr(),
+            tal.data_ptr(), 0 if cols is None else cols.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(),
+            counters.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"slot_extract_grouped kernel launch failed: CUDA "
                            f"error {err}")

@@ -24,8 +24,11 @@
   within a relative 1e-5; top-5 recall on Zipf data.
 * State carried across: the reference's state and table, taken mid-run
   after a promotion, continue in the port round for round.
+* The grouped kernel's scratch row, on the CPU.
 * On the card (marked ``cuda``): the grouped kernel against its plain
-  version, and its tracked cells against kernel 1 on the fan-out slots.
+  version at the window widths that reach every case of its geometry, and
+  three launches on the same inputs giving the same bits (its tracked
+  cells against kernel 1 on the fan-out slots: ``chip_smoke.py``).
 """
 
 import dataclasses
@@ -53,7 +56,12 @@ from repro_torch.data.generator import make_wiki_like as t_wiki
 from repro_torch.data.generator import store_dataset as t_store
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.slot_extract import slot_extract_cuda
+from repro_torch.kernels.slot_extract import (
+    scratch_lanes,
+    slot_extract_cuda,
+    tile_count,
+    tile_scratch,
+)
 from repro_torch.kernels.slot_extract_grouped import slot_extract_grouped_cuda
 from repro_torch.serve import ola_server as ts
 
@@ -635,9 +643,25 @@ def test_reference_state_continues_in_the_port(lane):
 # on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [8, 64, 4096])
-def test_grouped_kernel_matches_plain_version_on_the_card(cuda_device, b):
+# window widths that reach every case of the kernel's geometry: a partial
+# warp, one warp, a warp and a bit, two warps, one tile, two tiles, the
+# engine's budget_max (4096) and twice it
+EDGE_B = [1, 8, 31, 33, 64, 256, 257, 4096, 8192]
+
+
+@pytest.mark.parametrize("b", [8, 257, 4096])
+def test_grouped_scratch_row_holds_stats_cells_and_tallies(b):
+    # the deployment's shapes: S = 4 slots, G = 9 cells, H = 128 buckets
+    lanes = scratch_lanes(4, 9, 128)
+    assert lanes == 4 * 4 + 4 * 9 * 4 + 4 * 3 * 128
+    scratch = tile_scratch(4, b, lanes, torch.device("cpu"))
+    tiles = tile_count(b)
+    assert (scratch is None) == (tiles == 1)
+    if scratch is not None:
+        assert scratch.shape == (4, tiles, lanes)
+
+
+def _card_case(b, device):
     case = list(_grouped_case(seed=b, m=max(b, 64), b=b))
     case[3] = np.array([b, max(b - 3, 0), 0, b // 2], np.int32)
     # non-negative plan over non-negative data: relative sum bounds hold
@@ -648,9 +672,15 @@ def test_grouped_kernel_matches_plain_version_on_the_card(cuda_device, b):
     case[0] = AsciiFixedFormat(6).encode(vals).reshape(n, m, -1)
     case[4] = np.abs(case[4])
     case[5][:, 1], case[6][:, 1] = 1e5, 9e5
-    args = [torch.as_tensor(np.ascontiguousarray(a), device=cuda_device)
+    args = [torch.as_tensor(np.ascontiguousarray(a), device=device)
             for a in case]
-    salt = torch.tensor([11], dtype=torch.int32, device=cuda_device)
+    return args, torch.tensor([11], dtype=torch.int32, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", EDGE_B)
+def test_grouped_kernel_matches_plain_version_on_the_card(cuda_device, b):
+    args, salt = _card_case(b, cuda_device)
     before = slot_extract_grouped_cuda.launches
     got = slot_extract_grouped_cuda(*args, salt, 128, return_cols=True)
     want = tref.slot_extract_grouped_ref(*args[:9], *args[10:], salt,
@@ -664,3 +694,19 @@ def test_grouped_kernel_matches_plain_version_on_the_card(cuda_device, b):
         assert np.array_equal(g[..., 0], w[..., 0])
         np.testing.assert_allclose(g[..., 1:], w[..., 1:], rtol=rtol, atol=0)
     assert torch.equal(got[3].cpu(), want[3].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [257, 8192])
+def test_grouped_repeated_launches_give_the_same_bits_on_the_card(
+        cuda_device, b):
+    # more than one tile: the last block of each worker folds the tiles and
+    # resets its counter; a counter left set would change the next result
+    args, salt = _card_case(b, cuda_device)
+    runs = [slot_extract_grouped_cuda(*args, salt, 128, return_cols=True)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for got, first in zip(again, runs[0], strict=True):
+            assert torch.equal(got.view(torch.int32),
+                               first.view(torch.int32))

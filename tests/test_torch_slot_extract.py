@@ -10,8 +10,13 @@
   recursive-summation bound ``2·B·2^-24`` relative.
 * Dispatch: a CPU tensor takes the plain version and launches nothing; the
   CUDA wrapper refuses CPU tensors rather than falling back.
+* The launch geometry the wrapper computes for the kernel (tiles, block
+  size, scratch, tile counters), on the CPU.
 * On the card (marked ``cuda``; skipped without one): the hand-written
-  kernel against the plain version.
+  kernel against the plain version at the window widths that reach every
+  case of its geometry (a partial warp, one and more warps, one and two
+  tiles, the engine's ``budget_max`` and beyond), and three launches on the
+  same inputs giving the same bits.
 """
 
 import jax.numpy as jnp
@@ -24,7 +29,20 @@ from repro.data.generator import make_synthetic_zipf
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.slot_extract import slot_extract_cuda
+from repro_torch.kernels.slot_extract import (
+    TILE_ROWS,
+    _check_packed,
+    scratch_lanes,
+    slot_extract_cuda,
+    tile_counters,
+    tile_count,
+    tile_scratch,
+)
+
+# window widths that reach every case of the kernels' geometry: a partial
+# warp, one warp, a warp and a bit, two warps, one tile, two tiles, the
+# engine's budget_max (4096) and twice it
+EDGE_B = [1, 8, 31, 33, 64, 256, 257, 4096, 8192]
 from repro_torch.sampling.permutation import chunk_seed, permutation_window_dyn
 
 
@@ -49,7 +67,7 @@ def _case(c=16, s=8, w=4, b=64, n=6, m=512, seed=0):
     idx = permutation_window_dyn(
         seeds, torch.as_tensor(rng.integers(0, m, w)), b,
         torch.as_tensor(sizes[jw]), m).numpy().astype(np.int32)
-    b_eff = np.asarray([b, b - 3, b // 2, 0][:w], np.int32)
+    b_eff = np.asarray([b, max(b - 3, 0), b // 2, 0][:w], np.int32)
     coeffs = np.abs(rng.normal(size=(s, c))).astype(np.float32)
     coeffs[rng.random((s, c)) < 0.5] = 0.0
     lo = np.full((s, c), -np.inf, np.float32)
@@ -127,15 +145,73 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         slot_extract_cuda(*_torch(case))
 
 
+@pytest.mark.parametrize("b,tiles", [(1, 1), (8, 1), (255, 1), (256, 1),
+                                     (257, 2), (4096, 16), (8192, 32),
+                                     (8193, 33)])
+def test_tile_count(b, tiles):
+    assert tile_count(b) == tiles
+    # every window position has a tile, and a tile never holds more
+    assert tiles * TILE_ROWS >= b > (tiles - 1) * TILE_ROWS
+
+
+def test_tile_count_refuses_an_empty_window():
+    with pytest.raises(ValueError, match="at least one"):
+        tile_count(0)
+
+
+@pytest.mark.parametrize("s,g,h,lanes", [(8, 0, 0, 32), (8, 0, 128, 32),
+                                         (4, 9, 128, 4 * 4 + 4 * 9 * 4
+                                          + 4 * 3 * 128),
+                                         (1, 1, 2, 16)])  # 14 padded
+def test_scratch_lanes(s, g, h, lanes):
+    assert scratch_lanes(s, g, h) == lanes
+
+
+@pytest.mark.parametrize("b", EDGE_B)
+def test_scratch_only_past_one_tile(b):
+    scratch = tile_scratch(4, b, scratch_lanes(8), torch.device("cpu"))
+    tiles = tile_count(b)
+    if tiles == 1:
+        assert scratch is None
+    else:
+        assert scratch.shape == (4, tiles, 32)
+        assert scratch.dtype == torch.float32
+
+
+def test_tile_counters_are_zero_shared_per_stream_and_grow():
+    dev = torch.device("cpu")
+    first = tile_counters(4, dev, stream=-101)
+    assert first.dtype == torch.int32 and not first.any()
+    assert first.numel() >= 4
+    assert tile_counters(3, dev, stream=-101) is first
+    assert tile_counters(4, dev, stream=-102) is not first
+    grown = tile_counters(first.numel() + 1, dev, stream=-101)
+    assert grown.numel() > first.numel() and not grown.any()
+    assert tile_counters(4, dev, stream=-101) is grown
+
+
+def test_packed_must_be_16_byte_aligned():
+    flat = torch.zeros(1 + 2 * 4 * 64, dtype=torch.uint8)
+    ok = flat[:-1].view(2, 4, 64)
+    assert _check_packed(ok, ok.device) == (2, 4, 64)
+    shifted = flat[1:].view(2, 4, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        _check_packed(shifted, shifted.device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [8, 64, 4096])
-def test_kernel_matches_plain_version_on_the_card(cuda_device, b):
-    case = _case(b=b, m=max(4096, b), seed=b)
+@pytest.mark.parametrize("b,c", [(b, 16) for b in EDGE_B]
+                         # widths compiled without the row in registers; 20
+                         # columns stage a tile's words in two batches
+                         + [(8, 5), (257, 5), (8, 20), (257, 20),
+                            (4096, 20)])
+def test_kernel_matches_plain_version_on_the_card(cuda_device, b, c):
+    case = _case(c=c, b=b, m=max(4096, b), seed=b)
     args = _torch(case, cuda_device)
     before = slot_extract_cuda.launches
     got, got_cols = slot_extract_cuda(*args, return_cols=True)
     want, want_cols = tref.slot_extract_ref(
-        *args[:9], num_cols=16, return_cols=True, weights=args[9])
+        *args[:9], num_cols=c, return_cols=True, weights=args[9])
     torch.cuda.synchronize()
     assert slot_extract_cuda.launches == before + 1
     got, want = got.cpu().numpy(), want.cpu().numpy()
@@ -147,3 +223,18 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, b):
     wc = want_cols.cpu().numpy()
     assert (np.abs(got_cols.cpu().numpy() - wc)
             <= 2.0 ** -21 * np.abs(wc) + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [257, 8192])
+def test_repeated_launches_give_the_same_bits_on_the_card(cuda_device, b):
+    # more than one tile: each worker's last block folds the tiles and
+    # resets its counter; a counter left set would change the next result
+    args = _torch(_case(b=b, m=max(4096, b), seed=b + 1), cuda_device)
+    runs = [slot_extract_cuda(*args, return_cols=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    for stats, cols in runs[1:]:
+        assert torch.equal(stats.view(torch.int32),
+                           runs[0][0].view(torch.int32))
+        assert torch.equal(cols.view(torch.int32),
+                           runs[0][1].view(torch.int32))

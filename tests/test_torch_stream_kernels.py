@@ -263,10 +263,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_package_kernels_include_the_shared_header():
-    for name in ("slot_extract", "slot_extract_stream", "extract_parse"):
+    # the two packed kernels reach slot_common.cuh through slot_tile.cuh
+    tile = {"slot_tile.cuh"}
+    for name, more in (("slot_extract", tile), ("slot_extract_grouped", tile),
+                       ("slot_extract_stream", set()),
+                       ("extract_parse", set())):
         files: dict = {}
         _build._closure(_build.CSRC / f"{name}.cu", files)
-        assert {p.name for p in files} == {f"{name}.cu", "slot_common.cuh"}
+        assert {p.name for p in files} == {f"{name}.cu", "slot_common.cuh",
+                                           *more}
 
 
 @pytest.mark.cuda
