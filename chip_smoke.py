@@ -18,7 +18,9 @@ either is missing or any phase fails.  Phases:
                on chunks ``jw`` == the packed kernel on those ``jw``; the
                decoded kernel fed by ``extract_parse`` == the slab kernel on
                the raw rows; a mixed pair with complementary budgets == the
-               single kernel.  The grouped kernel at the grouped deployment's
+               single kernel; the slab kernels' cache rows off the window
+               +0.0 when torch.empty hands out NaN-filled memory.  The
+               grouped kernel at the grouped deployment's
                shapes (W=4, S=4, G=9, C=4) and the main store's (C=16, S=8
                with grouped, ungrouped and discovery-only slots), B in
                EDGE_B: against its plain version, tallies bit for bit, and
@@ -63,7 +65,8 @@ either is missing or any phase fails.  Phases:
                once per round and no other kernel.
 9. times     — each kernel's time per launch beside its bound and the plain
                version's time, the device kernels each call runs (one for
-               slot_extract and slot_extract_grouped), the mean server
+               slot_extract, slot_extract_grouped, slot_extract_stream and
+               slot_eval_decoded), the mean server
                rounds, the kernel's share of round time and the tally
                fold's, each beside the card's name and power limit.
 
@@ -77,6 +80,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import gc
 import json
 import os
@@ -157,7 +161,8 @@ LANE = dict(tuples=8192, chunks=12, langs=16, queries=4)
 # budget_max (4096, core/engine.py) and twice it
 EDGE_B = (1, 8, 31, 33, 64, 256, 257, 4096, 8192)
 # the kernels that run one device kernel per call
-ONE_LAUNCH = ("slot_extract", "slot_extract_grouped")
+ONE_LAUNCH = ("slot_extract", "slot_extract_grouped", "slot_extract_stream",
+              "slot_eval_decoded")
 
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
            slot_eval_decoded_cuda, extract_parse_cuda,
@@ -215,6 +220,32 @@ def same_bits(fn, what: str, first=None):
                 raise AssertionError(f"{what}: a repeated launch on the same "
                                      "inputs gave other bits")
     return runs[0]
+
+
+@contextlib.contextmanager
+def dirty_empty():
+    """Meanwhile ``torch.empty`` hands out NaN-filled float tensors, as a
+    reused block of the caching allocator may hold: an output element that a
+    kernel leaves unwritten shows as NaN."""
+    empty = torch.empty
+
+    def dirty(*shape, **kw):
+        t = empty(*shape, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = dirty
+    try:
+        yield
+    finally:
+        torch.empty = empty
+
+
+def off_window(b: int, b_eff: torch.Tensor, m_before: torch.Tensor,
+               cap: int) -> np.ndarray:
+    """(W, cap) True where a cache row holds no window position: row r holds
+    position r - m_before[w] when that is in [0, min(B, b_eff[w]))."""
+    k = np.arange(cap)[None, :] - m_before.cpu().numpy()[:, None]
+    return (k < 0) | (k >= np.minimum(b_eff.cpu().numpy(), b)[:, None])
 
 
 # ---------------------------------------------------------------- data ----
@@ -466,7 +497,9 @@ def stream_inputs(inputs, m_before=(0, 5, 100, 127)):
 # slot_extract: m lane equal, sums within (2B+16)·2^-24; decoded values,
 # i.e. cache rows and extract_parse's output, within one float32 ulp of the
 # plain parse: both round each field's value once or twice from the same
-# digits), and the three bitwise equalities of the module docstring.
+# digits), the three bitwise equalities of the module docstring, and every
+# cache row off the window +0.0 in NaN-filled output memory (the wrappers
+# allocate the cache with torch.empty and the kernels write every row).
 def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
     rng = np.random.default_rng(13)
     out = {"stream": [], "decoded": [], "parse": []}
@@ -497,6 +530,11 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             kref.gather_window(dec.reshape(w, r, c), idx), b_eff, mb,
             CACHE_CAP)
         packed_stats, _ = slot_extract_cuda(*inputs)
+        with dirty_empty():
+            dirty = [fn(src, *args, cache_cap=CACHE_CAP) for fn, src in (
+                (slot_extract_stream_cuda, slab),
+                (slot_eval_decoded_cuda, dec.reshape(w, r, c)))]
+        off = off_window(b, b_eff, mb, CACHE_CAP)
         is_dec = torch.tensor([True, False, False, True], device=slab.device)
         b_raw = torch.where(is_dec, torch.zeros_like(b_eff), b_eff)
         m1, mrows1 = slot_extract_stream_cuda(slab, idx, b_raw, *args[2:],
@@ -505,6 +543,17 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
                                             b_eff - b_raw, *args[2:],
                                             cache_cap=CACHE_CAP)
         torch.cuda.synchronize()
+        for (d_stats, d_rows), what, stats_, rows_ in zip(
+                dirty, ("slot_extract_stream", "slot_eval_decoded"),
+                (got, dstats), (rows, drows)):
+            bits = d_rows.view(torch.int32).cpu().numpy()
+            if (bits[off] != 0).any():
+                raise AssertionError(f"{what} B={b}: a cache row off the "
+                                     "window is not +0.0 in a dirty buffer")
+            if not (torch.equal(d_stats, stats_)
+                    and torch.equal(d_rows, rows_)):
+                raise AssertionError(f"{what} B={b}: a dirty output buffer "
+                                     "changed the result")
         h = {k: v.cpu().numpy() for k, v in dict(
             got=got, rows=rows, want=want, want_rows=want_rows, dec=dec,
             plain_dec=plain_dec, dstats=dstats, drows=drows, dwant=dwant,
@@ -548,8 +597,9 @@ def phase_stream_kernels(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             f"{out['parse'][-1]['max_abs_err']})")
         log(f"[kernel] B={b}: bitwise: slab == packed, decoded(extract_parse)"
             f" == slab, mixed pair == single (stats and cache rows); 3 "
-            f"launches of each kernel, same bits")
-        del slab, dec, plain_dec
+            f"launches of each kernel, same bits; {int(off.sum())} cache "
+            f"rows off the window +0.0 in NaN-filled output memory")
+        del slab, dec, plain_dec, dirty
     return out
 
 
@@ -1438,8 +1488,15 @@ def one_launch(name: str, per_call) -> None:
 
 def timed_calls(name: str, fn, iters: int, match: tuple) -> dict:
     """Device ms per call and device kernels per call (profiler), and the
-    wall per call with the wrapper's host work (CUDA events)."""
-    ms, per_call = device_ms(fn, iters, match)
+    wall per call with the wrapper's host work (CUDA events).  A trace with
+    no device time for the kernel, or a count of device activities that is
+    not a whole multiple of the calls, lost events (seen: 199 activities in
+    200 calls of a one-kernel call, and a trace of extract_parse with none):
+    the calls are traced again, up to three times."""
+    for _ in range(3):
+        ms, per_call = device_ms(fn, iters, match)
+        if per_call is not None and per_call == round(per_call):
+            break
     one_launch(name, per_call)
     return dict(device_ms=ms, kernels_per_call=per_call,
                 call_ms=time_cuda(fn, iters))
@@ -1510,6 +1567,10 @@ def slab_bound_ms(w: int, b: int, c: int, s: int, cap: int, decoded: bool):
     return bound(nbytes, ops_)
 
 
+# window widths of the slab kernels' times: the packed kernel's rungs
+STREAM_TIME_B = (8, 16, 32, 64, 4096)
+
+
 def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
     """Device and per-call times of the three slab-path kernels at the main
     path's shapes, their bounds and their plain versions' times."""
@@ -1517,7 +1578,7 @@ def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
     n, m_max, rec = packed.shape
     c = rec // FIELD_BYTES
     out = {}
-    for b in (8, 4096):
+    for b in STREAM_TIME_B:
         sets = []
         for _ in range(16):
             inp = list(kernel_inputs(packed, sizes, b, rng))
@@ -1536,7 +1597,7 @@ def phase_stream_times(packed: torch.Tensor, sizes: np.ndarray) -> dict:
             _, dec, args = sets[i % 16]
             return slot_eval_decoded_cuda(dec, *args, cache_cap=CACHE_CAP)
 
-        match = ("stream_blocks", "reduce_partials")
+        match = ("slab_tiles",)
         out[("slot_extract_stream", b)] = timed_calls(
             "slot_extract_stream", raw, 200, match)
         out[("slot_eval_decoded", b)] = timed_calls(

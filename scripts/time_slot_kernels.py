@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the packed round-extraction kernels of one checkout,
-``slot_extract`` and ``slot_extract_grouped``, at ``chip_smoke.py``'s timing
-shapes, so that two checkouts can be compared on one card in one call:
+"""Device time of the round-extraction kernels of one checkout, the packed
+``slot_extract`` and ``slot_extract_grouped`` and the slab kernels
+``slot_extract_stream`` and ``slot_eval_decoded``, at ``chip_smoke.py``'s
+timing shapes, so that two checkouts can be compared on one card in one
+call:
 
     git archive PARENT | tar -x -C build/parent
     for d in build/parent . . build/parent; do
@@ -10,11 +12,14 @@ shapes, so that two checkouts can be compared on one card in one call:
 
 ``--root`` names the checkout whose ``src/repro_torch`` and ``chip_smoke.py``
 are imported; the smoke's input builders make the same inputs from the same
-seeds in every checkout that has them.  Each kernel runs at W = 4 and
-B in {8, 4096} with full budgets over 16 input sets, cycled (``slot_extract``
-on C = 16 columns, S = 8 slots, with the decoded window; the grouped kernel
-at the grouped deployment's C = 4, S = 4, G = 9, H = 128), on a 512 MiB
-store, far past the L2 cache.  Prints one JSON line: per kernel and B the
+seeds in every checkout that has them.  Each kernel runs at W = 4 with full
+budgets over 16 input sets, cycled, on a 512 MiB store, far past the L2
+cache: ``slot_extract`` on C = 16 columns, S = 8 slots, with the decoded
+window, and the grouped kernel at the grouped deployment's C = 4, S = 4,
+G = 9, H = 128, both at B in {8, 4096}; the slab kernels on the same
+windows' chunks as raw slabs (64 MiB a set) and as their decoded slabs
+(``extract_parse``), with ``cache_cap`` = 128 cache rows, at B in {8, 16,
+32, 64, 4096}.  Prints one JSON line: per kernel and B the
 device µs per call (every device activity of 200 calls, ``torch.profiler``,
 so the count does not depend on the kernels' names), the device kernels per
 call and the wall µs per call with the wrapper (CUDA events), beside the
@@ -113,6 +118,38 @@ def calls(sets, gsets):
     return (("slot_extract", k1), ("slot_extract_grouped", k4))
 
 
+def slab_inputs(cs, sets):
+    """The slab kernels' view of ``slot_extract``'s input sets
+    (``chip_smoke.stream_inputs``): (raw slab of chunks jw, its decoded
+    slab, (idx, b_eff, plan..., m_before)) each."""
+    from repro_torch.kernels.extract_parse import extract_parse_cuda
+
+    out = []
+    for inp in sets:
+        slab, idx, b_eff, plan, mb = cs.stream_inputs(inp)
+        w, r, rec = slab.shape
+        c = rec // cs.FIELD_BYTES
+        dec = extract_parse_cuda(slab.reshape(w * r, rec), c).reshape(w, r, c)
+        out.append((slab, dec, (idx, b_eff, *plan, mb)))
+    return out
+
+
+def slab_calls(ssets, cap: int):
+    """The two timed slab-kernel calls over the cycled input sets."""
+    from repro_torch.kernels.slot_extract_stream import (
+        slot_eval_decoded_cuda, slot_extract_stream_cuda)
+
+    def k2(i):
+        slab, _, args = ssets[i % 16]
+        return slot_extract_stream_cuda(slab, *args, cache_cap=cap)
+
+    def k3(i):
+        _, dec, args = ssets[i % 16]
+        return slot_eval_decoded_cuda(dec, *args, cache_cap=cap)
+
+    return (("slot_extract_stream", k2), ("slot_eval_decoded", k3))
+
+
 def import_checkout(root: str):
     """chip_smoke.py and repro_torch of the checkout at ``root``."""
     root = os.path.abspath(root)
@@ -133,8 +170,11 @@ def main(argv=None) -> int:
     packed_stores = stores(cs)
     rng = np.random.default_rng(5)
     out = {"root": args.root, "card": cs.card_line(), "kernels": {}}
-    for b in (8, 4096):
-        for name, fn in calls(*timing_inputs(cs, packed_stores, rng, b)):
+    for b in (8, 16, 32, 64, 4096):
+        sets, gsets = timing_inputs(cs, packed_stores, rng, b)
+        timed = list(calls(sets, gsets)) if b in (8, 4096) else []
+        timed += slab_calls(slab_inputs(cs, sets), cs.CACHE_CAP)
+        for name, fn in timed:
             dev, n = device_us(fn, args.iters)
             out["kernels"][f"{name} B={b}"] = dict(
                 device_us=dev, device_kernels_per_call=n,

@@ -1,11 +1,11 @@
 // Device functions shared by the round-extraction kernels (slot_extract.cu,
-// slot_extract_stream.cu, slot_extract_grouped.cu), the parse kernel
-// (extract_parse.cu) and the rows kernels (chunk_agg.cu, round_stats.cu), so
-// that every kernel parses a field, evaluates a slot and reduces a window
-// with the same instructions in the same order.  A packed round, a streamed
-// raw round and a decoded round over the same rows therefore give the same
-// float bits, and a grouped round's tracked cells the bits of the fan-out
-// slots that carry the group conjunct.
+// slot_extract_stream.cu, slot_extract_grouped.cu, through slot_tile.cuh),
+// the parse kernel (extract_parse.cu) and the rows kernels (chunk_agg.cu,
+// round_stats.cu), so that every kernel parses a field, evaluates a slot and
+// reduces a window with the same instructions in the same order.  A packed
+// round, a streamed raw round and a decoded round over the same rows
+// therefore give the same float bits, and a grouped round's tracked cells
+// the bits of the fan-out slots that carry the group conjunct.
 //
 // Record layout: fixed-width ASCII, 16 bytes a field (sign, 8 integer
 // digits, '.', 6 fraction digits); one 16-byte load per field.
@@ -111,28 +111,6 @@ __device__ __forceinline__ Smem carve(float* smem, int C, int S) {
   return m;
 }
 
-// The slot plan and this worker's per-slot counted budgets
-// min(ceil(f32(w_s)·f32(b_eff)), b_eff) into shared memory.
-__device__ __forceinline__ void load_plan(const Smem& m, const float* __restrict__ coeffs,
-                                          const float* __restrict__ lo,
-                                          const float* __restrict__ hi,
-                                          const float* __restrict__ is_count,
-                                          const float* __restrict__ gate,
-                                          const float* __restrict__ weights, int beff,
-                                          int C, int S) {
-  for (int i = threadIdx.x; i < S * C; i += kThreads) {
-    m.coeffs[i] = coeffs[i];
-    m.lo[i] = lo[i];
-    m.hi[i] = hi[i];
-  }
-  for (int s = threadIdx.x; s < S; s += kThreads) {
-    m.isc[s] = is_count[s];
-    m.gate[s] = gate[s];
-    const int cap = (int)ceilf(__fmul_rn(weights[s], (float)beff));
-    m.bs[s] = cap < beff ? cap : beff;
-  }
-}
-
 // Slot s on this thread's row v (window position k): the counted flag ok
 // (k inside the slot's budget), the mask ok·gate, and the masked value x
 // and indicator pm that the four sums add up.
@@ -160,8 +138,8 @@ __device__ __forceinline__ SlotTerms slot_terms(const Smem& m, const float* v, i
 
 // Evaluate every slot on this thread's row v (window position k) and write
 // the block's (S, 4) partial sums (m, Σx, Σx², Σp) to out: warp shuffles,
-// then a fixed-order pass over the warps.  Call after load_plan, with the
-// whole block: it synchronises.
+// then a fixed-order pass over the warps.  Call after load_plan_rows, with
+// the whole block: it synchronises.
 __device__ __forceinline__ void eval_reduce(const Smem& m, const float* v, int k, int B,
                                             int C, int S, float* __restrict__ out) {
   __syncthreads();  // plan and budgets are in shared memory

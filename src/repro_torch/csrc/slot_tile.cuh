@@ -1,6 +1,7 @@
-// The one-launch tile body of the packed round-extraction kernels
-// (slot_extract.cu, and slot_extract_grouped.cu with kGrouped), for NVIDIA
-// Hopper (sm_90a).
+// The one-launch tile body of the round-extraction kernels, for NVIDIA
+// Hopper (sm_90a): the packed kernels (slot_extract.cu, and
+// slot_extract_grouped.cu with kGrouped) and the slab kernels
+// (slot_extract_stream.cu: a round's raw slab, or its decoded slab).
 //
 // The grid is (tiles, W): block (t, w) owns window positions
 // [256·t, 256·t + 256) of worker w.  Its row warps hold 32 positions each
@@ -8,12 +9,14 @@
 // a block, and repeat sg takes slots sg, sg + SG, ... and, grouped, every
 // P-th live cell, so a short window's slots and cells run on parallel
 // warps rather than one after another.  A block
-//   1. reads the chunk id, the budget and its window rows' indices (one
-//      trip to device memory);
+//   1. reads the chunk id (packed only: a slab's worker w reads slab[w]),
+//      the budget and its window rows' indices (one trip to device memory);
 //   2. issues every 16-byte field of every live row at once with cp.async
 //      (neighbouring threads on neighbouring words of a row: coalesced),
 //      loads the plan into shared memory while the rows are in flight, and
-//      parses each word it copied;
+//      parses each word it copied; a decoded slab's rows are copied float
+//      by float (4-byte cp.async, neighbouring threads on neighbouring
+//      floats) straight into the row buffer, with no parse;
 //   3. evaluates the slots on the row warps that hold live rows, reduces
 //      each slot (and, grouped, each live cell) with slot_common.cuh's warp
 //      shuffles, and, grouped, tallies each discovering slot's rows by hash
@@ -23,7 +26,10 @@
 //      outputs when the window is one tile; a longer window's tiles write
 //      scratch rows, and the last block of the worker to finish (an integer
 //      counter, reset by that block) folds them in tile order, sixteen
-//      tiles' loads in flight.  No second launch, no float atomics.
+//      tiles' loads in flight.  No second launch, no float atomics.  A slab
+//      kernel also writes the worker's synopsis-cache rows: each block its
+//      window rows at m_before[w] + k, tile 0 +0.0 in every other row, so
+//      the cache needs no fill.
 //
 // Live rows are window positions k < B, and, unless the decoded window is
 // asked for, k < b_eff[w]: every slot's budget is at most b_eff, so a row
@@ -33,8 +39,9 @@
 // from 0.0f, tiles in order from 0.0f; tallies in row order).  What is left
 // out (dead rows, dead warps, dead cells, warps whose cell terms are all
 // zero) would add only ±0 to a sum that starts at +0.0f, and such a sum
-// never becomes -0.0f: the bits are those of the two-pass kernels, and so
-// those of slot_extract_stream.cu on the same rows.
+// never becomes -0.0f: the bits are those of the first port's two-pass
+// kernels, and a slab round gives the bits of a packed round over the same
+// rows.
 
 #pragma once
 
@@ -49,8 +56,13 @@ constexpr int kStageCap = 4096;      // 16-byte words staged at once (64 KiB)
 constexpr uint32_t kSaltMul = 2654435761u;
 constexpr uint32_t kMixMul = 2246822519u;
 
+// Where a block's rows come from: a packed store (chunk jw[w], rows below
+// m_max, 16·C bytes a row), the round's raw slab (worker w's rows at
+// slab[w], rows below m_max = R) or its decoded slab (C floats a row).
+enum class Src { kPacked, kSlab, kDecoded };
+
 struct Args {
-  const uint8_t* packed;
+  const uint8_t* packed;  // packed store or raw slab
   long long n_chunks, m_max;
   int C, W, B, S;
   const int* jw;
@@ -79,6 +91,12 @@ struct Args {
   float* scratch;
   int* counters;
   int stage_words;
+  // slab only (last, so the packed kernels' fields keep their offsets): the
+  // decoded slab, scan positions (W,) and the cache rows (W, cap, C) or null
+  const float* dec;
+  const int* m_before;
+  float* cache;
+  int cap;
 };
 
 // Geometry, the same on the host and in the kernel (the wrappers in
@@ -164,6 +182,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
@@ -209,8 +233,10 @@ __device__ __forceinline__ SlotTerms terms(const Smem& m, const float* v, int k,
   return t;
 }
 
-template <int CT, bool kGrouped>
+template <int CT, bool kGrouped, Src kSrc = Src::kPacked>
 __device__ __forceinline__ void body(const Args& a) {
+  static_assert(!kGrouped || kSrc == Src::kPacked, "grouped rounds are packed");
+  constexpr bool kSlab = kSrc != Src::kPacked;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last_block;
   const int C = CT > 0 ? CT : a.C;
@@ -254,12 +280,15 @@ __device__ __forceinline__ void body(const Args& a) {
   const int in_tile = min(a.B - k0, kTileRows);
   int ir = -1;
   if (tid < in_tile) ir = a.idx[(long long)w * a.B + k0 + tid];
-  const int j = a.jw[w];
+  const int j = kSlab ? w : a.jw[w];
   const int beff = a.b_eff[w];
-  const int lim = a.cols != nullptr ? a.B : min(a.B, max(beff, 0));
+  const int mb = kSlab && a.cache != nullptr ? a.m_before[w] : 0;
+  const int nlive = min(a.B, max(beff, 0));  // window positions counted
+  const int lim = a.cols != nullptr ? a.B : nlive;
   const int R = max(0, min(lim - k0, kTileRows));  // live rows of the tile
   const int nlw = (R + 31) >> 5;                   // row warps holding them
-  const long long rec = (long long)C * kFieldBytes;
+  // a row's offset: bytes of a record, or floats of a decoded row
+  const long long rec = kSrc == Src::kDecoded ? C : (long long)C * kFieldBytes;
   if (tid < R)
     off[tid] = (j >= 0 && j < a.n_chunks && ir >= 0 && ir < a.m_max)
                    ? ((long long)j * a.m_max + ir) * rec
@@ -270,9 +299,21 @@ __device__ __forceinline__ void body(const Args& a) {
   // meanwhile (one trip), then each thread parses the words it copied
   const int words = R * C;
   const int sw = a.stage_words;
-  for (int q = tid; q < min(words, sw); q += T) {
-    const long long o = off[q / C];
-    if (o >= 0) cp_async16(stage + (size_t)q * kFieldBytes, a.packed + o + (q % C) * kFieldBytes);
+  if constexpr (kSrc == Src::kDecoded) {
+    for (int q = tid; q < words; q += T) {
+      const int r = q / C, f = q - r * C;
+      const long long o = off[r];
+      float* dst = m.vals + r * m.cs + f;
+      if (o >= 0)
+        cp_async4(dst, a.dec + o + f);
+      else
+        *dst = 0.0f;
+    }
+  } else {
+    for (int q = tid; q < min(words, sw); q += T) {
+      const long long o = off[q / C];
+      if (o >= 0) cp_async16(stage + (size_t)q * kFieldBytes, a.packed + o + (q % C) * kFieldBytes);
+    }
   }
   const int np = max(max(S * C, S), S * G);
   for (int i = tid; i < np; i += T) {
@@ -319,21 +360,25 @@ __device__ __forceinline__ void body(const Args& a) {
   }
   // rows past the live ones in a live row warp hold zeros
   for (int i = tid; i < (nlw * 32 - R) * C; i += T) m.vals[(R + i / C) * m.cs + i % C] = 0.0f;
-  for (int base = 0;;) {
+  if constexpr (kSrc == Src::kDecoded) {
     cp_async_wait_all();
-    for (int q = base + tid; q < min(words, base + sw); q += T) {
-      const int r = q / C, f = q % C;
-      m.vals[r * m.cs + f] =
-          off[r] >= 0 ? parse_field(*reinterpret_cast<const uint4*>(
-                            stage + (size_t)(q - base) * kFieldBytes))
-                      : 0.0f;
-    }
-    base += sw;
-    if (base >= words) break;
-    for (int q = base + tid; q < min(words, base + sw); q += T) {
-      const long long o = off[q / C];
-      if (o >= 0)
-        cp_async16(stage + (size_t)(q - base) * kFieldBytes, a.packed + o + (q % C) * kFieldBytes);
+  } else {
+    for (int base = 0;;) {
+      cp_async_wait_all();
+      for (int q = base + tid; q < min(words, base + sw); q += T) {
+        const int r = q / C, f = q % C;
+        m.vals[r * m.cs + f] =
+            off[r] >= 0 ? parse_field(*reinterpret_cast<const uint4*>(
+                              stage + (size_t)(q - base) * kFieldBytes))
+                        : 0.0f;
+      }
+      base += sw;
+      if (base >= words) break;
+      for (int q = base + tid; q < min(words, base + sw); q += T) {
+        const long long o = off[q / C];
+        if (o >= 0)
+          cp_async16(stage + (size_t)(q - base) * kFieldBytes, a.packed + o + (q % C) * kFieldBytes);
+      }
     }
   }
   __syncthreads();  // rows parsed, plan in shared memory
@@ -536,6 +581,25 @@ __device__ __forceinline__ void body(const Args& a) {
     float* dst = a.cols + ((long long)w * a.B + k0) * C;
     for (int i = tid; i < R * C; i += T) dst[i] = m.vals[(i / C) * m.cs + i % C];
   }
+  if constexpr (kSlab) {
+    // the synopsis-cache rows, coalesced, past the fence: row mb + k holds
+    // live window position k, and tile 0 writes +0.0 to every other row of
+    // the worker (the two sets are disjoint, so no two blocks write a row)
+    if (a.cache != nullptr) {
+      float* dst = a.cache + (long long)w * a.cap * C;
+      for (int i = tid; i < R * C; i += T) {
+        const int r = i / C, f = i - r * C;
+        const int row = mb + k0 + r;
+        if (row >= 0 && row < a.cap) dst[row * C + f] = m.vals[r * m.cs + f];
+      }
+      if (blockIdx.x == 0) {
+        for (int i = tid; i < a.cap * C; i += T) {
+          const int k = i / C - mb;
+          if (k < 0 || k >= nlive) dst[i] = 0.0f;
+        }
+      }
+    }
+  }
   if (gridDim.x == 1 || !last_block) return;
   const int nt = gridDim.x;
   const float4* src = reinterpret_cast<const float4*>(a.scratch + (long long)w * nt * row);
@@ -569,11 +633,12 @@ __device__ __forceinline__ void body(const Args& a) {
 // over the (tiles, W) grid.  `smem_set` remembers the dynamic shared memory
 // this instantiation was last allowed, so the attribute is set once.
 inline int launch(void (*kernel)(Args), Args a, bool grouped, int* smem_set,
-                  cudaStream_t st) {
+                  cudaStream_t st, Src src = Src::kPacked) {
   if (a.W < 1 || a.W > 65535 || a.B < 1 || a.S < 1 || a.C < 1)
     return (int)cudaErrorInvalidValue;
   const int T = threads(a.B, a.S, grouped);
-  a.stage_words = stage_words(a.B, a.C, T);
+  // a decoded slab is copied straight into the row buffer: nothing staged
+  a.stage_words = src == Src::kDecoded ? 0 : stage_words(a.B, a.C, T);
   const size_t smem =
       layout(a.C, a.S, a.G, a.H, T, 32 * row_warps(a.B), a.stage_words, grouped).total;
   if (smem > 48 * 1024 && (long long)smem > (long long)*smem_set) {

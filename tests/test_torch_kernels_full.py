@@ -10,7 +10,8 @@
 * Dispatch: a CPU tensor takes the plain version and launches nothing; the
   CUDA wrappers refuse CPU tensors rather than falling back.
 * On the card (marked ``cuda``; skipped without one): each kernel against
-  its plain version, and ``chunk_agg``'s totals against float64 sums.
+  its plain version, and ``chunk_agg``'s totals against float64 sums of
+  the float32 parse.
 """
 
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.chunk_agg import chunk_agg_cuda
+from repro_torch.kernels.extract_parse import extract_parse_cuda
 from repro_torch.kernels.round_stats import round_stats_cuda
 
 
@@ -136,11 +138,16 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, kernel, r):
     # sums) and sums rows in blocks: see chip_smoke.py for the derivation
     np.testing.assert_allclose(got[..., 1:], want[..., 1:],
                                rtol=(2 * r + 16) * 2.0 ** -24, atol=0)
-    # against float64 sums of the same rows: each sum carries the parse's
-    # and the linear expression's rounding and the blocks' summation order
+    # against float64 sums of the rows as the kernel's contract parses them:
+    # float32 values from slot_common.cuh::parse_field (extract_parse runs
+    # the same parse), so the predicate is decided on the values the kernel
+    # decides it on (a row within one float32 spacing of a bound falls on
+    # the same side); each sum carries the linear expression's rounding and
+    # the blocks' summation order
     if kernel == "chunk_agg":
         coeffs, lo, hi = (a.cpu().numpy().astype(np.float64) for a in plan)
-        v = vals.reshape(lead, r, c)
+        v = extract_parse_cuda(raw.reshape(lead * r, -1), c).cpu().numpy()
+        v = v.astype(np.float64).reshape(lead, r, c)
         ok = np.arange(r)[None, :] < valid.cpu().numpy()[:, None]
         p = np.all((v[:, :, None] >= lo) & (v[:, :, None] < hi), -1) & \
             ok[..., None]

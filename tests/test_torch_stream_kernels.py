@@ -12,9 +12,14 @@
   slab path, and a mixed pair with complementary budgets equals the single
   kernel — all bit for bit.
 * Dispatch: CPU tensors take the plain versions and launch nothing; the
-  CUDA wrappers refuse CPU tensors.
+  CUDA wrappers refuse CPU tensors, a slab that is not 16-byte aligned and
+  malformed inputs; the outputs are ``torch.empty`` with a tile scratch
+  only past one tile.
 * On the card (marked ``cuda``, skipped without one): each kernel against
-  its plain version, and the three equalities above, bitwise.
+  its plain version at B from 1 to 8,192 and C in {4, 5, 16, 20}, the
+  three equalities above, bitwise, three launches on the same inputs with
+  the same bits, and cache rows off the window at +0.0 in a buffer taken
+  from a freed NaN block.
 """
 
 import jax.numpy as jnp
@@ -30,7 +35,10 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.extract_parse import extract_parse_cuda
 from repro_torch.kernels.slot_extract import slot_extract_cuda
+from repro_torch.kernels.slot_extract import TILE_ROWS, tile_count
 from repro_torch.kernels.slot_extract_stream import (
+    check_inputs,
+    outputs,
     slot_eval_decoded_cuda,
     slot_extract_stream_cuda,
 )
@@ -60,7 +68,7 @@ def _case(c=16, s=8, w=4, b=64, n=6, m=512, seed=0):
     idx = permutation_window_dyn(
         seeds, torch.as_tensor(rng.integers(0, m, w)), b,
         torch.full((w,), m), m).numpy().astype(np.int32)
-    b_eff = np.asarray([b, b - 3, b // 2, 0][:w], np.int32)
+    b_eff = np.maximum([b, b - 3, b // 2, 0][:w], 0).astype(np.int32)
     m_before = np.asarray([0, 5, 100, 7][:w], np.int32)
     coeffs = np.abs(rng.normal(size=(s, c))).astype(np.float32)
     coeffs[rng.random((s, c)) < 0.5] = 0.0
@@ -172,6 +180,76 @@ def test_extract_parse_plain_version_matches_reference():
     assert np.array_equal(tref.parse_ascii_ref(_t(raw), 16).numpy(), want)
 
 
+def _kernel_args(case, device="cpu", decoded=False):
+    """(source, idx, b_eff, coeffs, lo, hi, is_count, gate, weights,
+    m_before) of a case on ``device``: the raw slab, or its plain parse."""
+    plan, wts = _plan_args(case["plan"], device=device)
+    slab = _t(case["slab"], device)
+    if decoded:
+        w, r, rec = slab.shape
+        slab = tref.parse_ascii_ref(slab.reshape(w * r, rec),
+                                    rec // 16).reshape(w, r, rec // 16)
+    return (slab, _t(case["idx"], device), _t(case["b_eff"], device), *plan,
+            wts, _t(case["m_before"], device))
+
+
+@pytest.mark.parametrize("cache_cap", [0, 128])
+@pytest.mark.parametrize("b", [1, 8, 256, 257, 4096, 8192])
+def test_outputs_are_empty_with_scratch_only_past_one_tile(b, cache_cap):
+    stats, cache, scratch = outputs(4, b, 8, 5, cache_cap, torch.device("cpu"))
+    assert stats.shape == (4, 8, 4) and stats.dtype == torch.float32
+    if cache_cap:
+        assert cache.shape == (4, cache_cap, 5)
+        assert cache.dtype == torch.float32
+    else:
+        assert cache is None
+    if b <= TILE_ROWS:
+        assert scratch is None
+    else:
+        assert scratch.shape == (4, tile_count(b), 32)
+
+
+@pytest.mark.parametrize("decoded", [False, True])
+def test_check_inputs_shapes(decoded):
+    case = _case(c=5, b=33, seed=6)
+    assert check_inputs(decoded, *_kernel_args(case, decoded=decoded)[:-1],
+                        24, _t(case["m_before"])) == (4, 576, 33, 8, 5)
+
+
+@pytest.mark.parametrize("decoded", [False, True])
+def test_slab_must_be_16_byte_aligned(decoded):
+    case = _case(c=4, b=8, seed=7)
+    src, *rest = _kernel_args(case, decoded=decoded)
+    flat = torch.zeros(src.numel() + 16, dtype=src.dtype)
+    step = 16 // src.element_size()
+    ok = flat[:src.numel()].view(src.shape)
+    assert check_inputs(decoded, ok, *rest[:-1], 0, rest[-1])[0] == 4
+    shifted = flat[step // 2 or 1:][:src.numel()].view(src.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_inputs(decoded, shifted, *rest[:-1], 0, rest[-1])
+
+
+@pytest.mark.parametrize("fault", ["width", "workers", "cap", "m_before",
+                                   "idx_dtype"])
+@pytest.mark.parametrize("decoded", [False, True])
+def test_check_inputs_refuses_malformed_inputs(decoded, fault):
+    case = _case(c=4, b=8, seed=8)
+    src, idx, b_eff, *plan, wts, mb = _kernel_args(case, decoded=decoded)
+    cap = 16
+    if fault == "width":
+        src = src[..., :-1].contiguous()
+    elif fault == "workers":
+        src = src[:3].contiguous()
+    elif fault == "cap":
+        cap = -1
+    elif fault == "m_before":
+        mb = mb[:3].contiguous()
+    else:
+        idx = idx.to(torch.int64)
+    with pytest.raises((ValueError, TypeError)):
+        check_inputs(decoded, src, idx, b_eff, *plan, wts, cap, mb)
+
+
 def _port_equalities(device):
     """The three equalities the port's paths must hold bit for bit, on
     ``device``: slab == packed over the same rows, decoded (fed by
@@ -263,10 +341,10 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_package_kernels_include_the_shared_header():
-    # the two packed kernels reach slot_common.cuh through slot_tile.cuh
+    # the packed and slab kernels reach slot_common.cuh through slot_tile.cuh
     tile = {"slot_tile.cuh"}
     for name, more in (("slot_extract", tile), ("slot_extract_grouped", tile),
-                       ("slot_extract_stream", set()),
+                       ("slot_extract_stream", tile),
                        ("extract_parse", set())):
         files: dict = {}
         _build._closure(_build.CSRC / f"{name}.cu", files)
@@ -274,41 +352,106 @@ def test_package_kernels_include_the_shared_header():
                                            *more}
 
 
+def _off_window(b, b_eff, m_before, cap):
+    """(W, cap) True where a cache row holds no window position."""
+    k = np.arange(cap)[None, :] - np.asarray(m_before)[:, None]
+    live = np.minimum(np.asarray(b_eff), b)[:, None]
+    return (k < 0) | (k >= live)
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_the_card(cuda_device):
+@pytest.mark.parametrize("c", [4, 5, 16, 20])
+@pytest.mark.parametrize("b", [1, 8, 257, 4096, 8192])
+def test_kernels_match_plain_versions_on_the_card(cuda_device, b, c):
+    # C = 4 and 16 run with the row in registers, 5 and 20 from shared
+    # memory; 5 and 20 floats are not a whole number of 16-byte words
     before = (slot_extract_stream_cuda.launches,
               slot_eval_decoded_cuda.launches, extract_parse_cuda.launches)
-    for b in (8, 64, 4096):
-        case = _case(b=b, m=max(512, b), seed=b)
-        plan, wts = _plan_args(case["plan"], device=cuda_device)
-        args = (_t(case["idx"], cuda_device), _t(case["b_eff"], cuda_device),
-                *plan, wts, _t(case["m_before"], cuda_device))
-        slab = _t(case["slab"], cuda_device)
-        got, rows = slot_extract_stream_cuda(slab, *args, cache_cap=128)
-        cpu_plan, cpu_wts = _plan_args(case["plan"])
-        want = tref.slot_extract_stream_ref(
-            _t(case["slab"]), _t(case["idx"]), _t(case["b_eff"]), *cpu_plan,
-            num_cols=16, weights=cpu_wts)
-        want_rows = tref.stream_cache_rows_ref(
-            _t(case["slab"]), _t(case["idx"]), _t(case["b_eff"]),
-            _t(case["m_before"]), 128, 16)
-        torch.cuda.synchronize()
-        got, want = got.cpu().numpy(), want.numpy()
-        assert np.array_equal(got[..., 0], want[..., 0])
-        # int32 Horner parse (within a few ulp of the plain per-digit sums)
-        # and block-order row sums: chip_smoke.py derives both bounds
-        np.testing.assert_allclose(got[..., 1:], want[..., 1:],
-                                   rtol=(2 * b + 16) * 2.0 ** -24, atol=0)
-        wr = want_rows.numpy()
-        assert (np.abs(rows.cpu().numpy() - wr)
-                <= 2.0 ** -21 * np.abs(wr) + 1e-6).all()
-        raw = slab.reshape(-1, 256)
-        parsed = extract_parse_cuda(raw, 16).cpu().numpy()
-        plain = tref.parse_ascii_ref(raw.cpu(), 16).numpy()
-        assert (np.abs(parsed - plain) <= 2.0 ** -21 * np.abs(plain)
-                + 1e-6).all()
-    assert slot_extract_stream_cuda.launches == before[0] + 3
-    assert extract_parse_cuda.launches == before[2] + 3
+    case = _case(c=c, b=b, m=max(512, b), seed=b + c)
+    args = _kernel_args(case, cuda_device)
+    cpu = _kernel_args(case)
+    got, rows = slot_extract_stream_cuda(*args, cache_cap=128)
+    want = tref.slot_extract_stream_ref(*cpu[:-2], num_cols=c,
+                                        weights=cpu[-2])
+    want_rows = tref.stream_cache_rows_ref(cpu[0], cpu[1], cpu[2], cpu[-1],
+                                           128, c)
+    slab = args[0]
+    w, r, rec = slab.shape
+    dec = extract_parse_cuda(slab.reshape(w * r, rec), c).reshape(w, r, c)
+    dstats, drows = slot_eval_decoded_cuda(dec, *args[1:], cache_cap=128)
+    dec_cpu = dec.cpu()
+    dwant = tref.slot_eval_decoded_ref(dec_cpu, *cpu[1:-2], weights=cpu[-2])
+    dwant_rows = tref.window_cache_rows_ref(
+        tref.gather_window(dec_cpu, cpu[1]), cpu[2], cpu[-1], 128)
+    torch.cuda.synchronize()
+    assert (slot_extract_stream_cuda.launches,
+            slot_eval_decoded_cuda.launches,
+            extract_parse_cuda.launches) == tuple(n + 1 for n in before)
+    # int32 Horner parse (within a few ulp of the plain per-digit sums)
+    # and block-order row sums: chip_smoke.py derives both bounds
+    rtol = (2 * b + 16) * 2.0 ** -24
+    for g, wnt in ((got, want), (dstats, dwant)):
+        g, wnt = g.cpu().numpy(), wnt.numpy()
+        assert np.array_equal(g[..., 0], wnt[..., 0])
+        np.testing.assert_allclose(g[..., 1:], wnt[..., 1:], rtol=rtol,
+                                   atol=0)
+    wr = want_rows.numpy()
+    assert (np.abs(rows.cpu().numpy() - wr)
+            <= 2.0 ** -21 * np.abs(wr) + 1e-6).all()
+    assert np.array_equal(drows.cpu().numpy(), dwant_rows.numpy())
+    # decoded == raw slab, bit for bit, stats and cache rows
+    assert torch.equal(dstats, got) and torch.equal(drows, rows)
+    plain = tref.parse_ascii_ref(slab.reshape(-1, rec).cpu(), c).numpy()
+    assert (np.abs(dec_cpu.reshape(-1, c).numpy() - plain)
+            <= 2.0 ** -21 * np.abs(plain) + 1e-6).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoded", [False, True])
+@pytest.mark.parametrize("b", [8, 257, 8192])
+def test_repeated_launches_give_the_same_bits_on_the_card(cuda_device, b,
+                                                          decoded):
+    # more than one tile: each worker's last block folds the tiles and
+    # resets its counter; a counter left set would change the next result
+    case = _case(b=b, m=max(512, b), seed=b + 3)
+    args = _kernel_args(case, cuda_device, decoded=decoded)
+    fn = slot_eval_decoded_cuda if decoded else slot_extract_stream_cuda
+    runs = [fn(*args, cache_cap=128) for _ in range(3)]
+    torch.cuda.synchronize()
+    for stats, rows in runs[1:]:
+        assert torch.equal(stats.view(torch.int32),
+                           runs[0][0].view(torch.int32))
+        assert torch.equal(rows.view(torch.int32),
+                           runs[0][1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("decoded", [False, True])
+@pytest.mark.parametrize("b", [8, 257])
+def test_cache_rows_off_the_window_are_zero_in_a_dirty_buffer(
+        cuda_device, monkeypatch, b, decoded):
+    case = _case(b=b, m=max(512, b), seed=b + 4)
+    args = _kernel_args(case, cuda_device, decoded=decoded)
+    fn = slot_eval_decoded_cuda if decoded else slot_extract_stream_cuda
+    # the wrapper's torch.empty hands out NaN-filled memory, as a reused
+    # block of the caching allocator may hold: every cache row the kernel
+    # leaves unwritten would show
+    empty = torch.empty
+
+    def dirty(*shape, **kw):
+        t = empty(*shape, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", dirty)
+    stats, rows = fn(*args, cache_cap=128)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert not torch.isnan(stats).any()
+    bits = rows.view(torch.int32).cpu().numpy()
+    off = _off_window(b, case["b_eff"], case["m_before"], 128)
+    assert off.any() and (~off).any()
+    assert (bits[off] == 0).all()
+    assert not np.isnan(rows.cpu().numpy()).any()
 
 
 @pytest.mark.cuda
