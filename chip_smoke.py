@@ -65,8 +65,7 @@ either is missing or any phase fails.  Phases:
                once per round and no other kernel.
 9. times     — each kernel's time per launch beside its bound and the plain
                version's time, the device kernels each call runs (one for
-               slot_extract, slot_extract_grouped, slot_extract_stream and
-               slot_eval_decoded), the mean server
+               every kernel but extract_parse), the mean server
                rounds, the kernel's share of round time and the tally
                fold's, each beside the card's name and power limit.
 
@@ -106,7 +105,8 @@ from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
-from repro_torch.kernels.chunk_agg import chunk_agg_cuda  # noqa: E402
+from repro_torch.kernels.chunk_agg import (  # noqa: E402
+    chunk_agg_cuda, launch_split)
 from repro_torch.kernels.extract_parse import extract_parse_cuda  # noqa: E402
 from repro_torch.kernels.ref import slot_extract_ref  # noqa: E402
 from repro_torch.kernels.round_stats import round_stats_cuda  # noqa: E402
@@ -162,7 +162,7 @@ LANE = dict(tuples=8192, chunks=12, langs=16, queries=4)
 EDGE_B = (1, 8, 31, 33, 64, 256, 257, 4096, 8192)
 # the kernels that run one device kernel per call
 ONE_LAUNCH = ("slot_extract", "slot_extract_grouped", "slot_extract_stream",
-              "slot_eval_decoded")
+              "slot_eval_decoded", "chunk_agg", "round_stats")
 
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
            slot_eval_decoded_cuda, extract_parse_cuda,
@@ -799,16 +799,26 @@ def parse_slack(values: np.ndarray, q: Query):
 # version's (the count and Σp lanes exactly), and its per-query totals,
 # added over chunks in float64, agree with exact_answer's float64 answers
 # within (M/256 + 64)·2^-24 of Σ|x| (each term carries the parse's and the
-# linear expression's few roundings, and a chunk's sum is a chain of 5
-# shuffle levels, 8 warps and M/256 blocks) plus the rows the float32 parse
-# may move across a predicate bound (the dataset's values are multiples of
-# 999.99, so the parse rounds them; parse_slack counts those rows).
-# round_stats at (4, 4096, 256) on a round's gathered window, through
-# ops.round_stats, against its plain version as for slot_extract.
+# linear expression's few roundings, and a chunk's sum is a chain of the
+# rows a thread sums, 5 shuffle levels, 4 warps and the P blocks the chunk
+# is split over: rows_split's chain_depth, held here to that allowance)
+# plus the rows the float32 parse may move across a predicate bound (the
+# dataset's values are multiples of 999.99, so the parse rounds them;
+# parse_slack counts those rows).  round_stats at (4, 4096, 256) on a
+# round's gathered window, through ops.round_stats, against its plain
+# version as for slot_extract.
 def phase_rows_kernels(packed, sizes: np.ndarray, values: np.ndarray) -> dict:
     qs, plan = deployment_plan(values)
     sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
     n, m_max, rec = packed.shape
+    splits = {}
+    for name, (l, r) in (("chunk_agg", (n, m_max)), ("round_stats", (4, 4096))):
+        c, q = rec // FIELD_BYTES, plan[0].shape[0]
+        sp = splits[name] = launch_split(name, l, r, c, q, packed.device)
+        if sp.chain_depth > r // 256 + 64:
+            raise AssertionError(f"{name}: a sum's rounding chain of "
+                                 f"{sp.chain_depth} additions exceeds the "
+                                 f"tolerance's {r // 256 + 64}")
     reset_launches()
     out = ops.chunk_agg(packed, sizes_t, *plan)
     torch.cuda.synchronize()
@@ -858,6 +868,10 @@ def phase_rows_kernels(packed, sizes: np.ndarray, values: np.ndarray) -> dict:
     prs = kref.round_stats_ref(slab, rec // FIELD_BYTES, *plan, b_eff)
     rs_rel = check_sums(rs.cpu().numpy(), prs.cpu().numpy(), 4096,
                         "round_stats")
+    for name, sp in splits.items():
+        log(f"[rows] {name}: {sp.blocks} blocks a row block, {sp.steps} "
+            f"steps of {sp.step_rows} rows a block, rounding chain "
+            f"{sp.chain_depth} additions")
     log(f"[rows] chunk_agg over {n} chunks ({int(sizes.sum())} rows): count "
         f"lanes == sizes, sums max rel err {rel:.3g} vs the plain version "
         f"(rtol {(2 * m_max + 16) * 2.0 ** -24:.3g}), totals within "
@@ -1717,8 +1731,7 @@ def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
     end.record()
     torch.cuda.synchronize()
     out[("chunk_agg", n)] = dict(
-        **timed_calls("chunk_agg", agg, 20, ("chunk_agg_blocks",
-                                             "reduce_partials")),
+        **timed_calls("chunk_agg", agg, 20, ("chunk_agg_rows",)),
         plain_ms=start.elapsed_time(end),
         bound=rows_bound_ms(int(sizes.sum()), n, cc, q))
     sets = []
@@ -1737,8 +1750,7 @@ def phase_grouped_times(gpacked, gsizes, packed, sizes, rows: dict) -> dict:
         return kref.round_stats_ref(slab, cc, *plan, be)
 
     out[("round_stats", 4096)] = dict(
-        **timed_calls("round_stats", rs, 200, ("round_stats_blocks",
-                                               "reduce_partials")),
+        **timed_calls("round_stats", rs, 200, ("round_stats_rows",)),
         plain_ms=time_cuda(prs, 20),
         bound=rows_bound_ms(4 * 4096, 4, cc, q))
     return out

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the round-extraction kernels of one checkout, the packed
 ``slot_extract`` and ``slot_extract_grouped`` and the slab kernels
-``slot_extract_stream`` and ``slot_eval_decoded``, at ``chip_smoke.py``'s
+``slot_extract_stream`` and ``slot_eval_decoded``, and of the full-scan
+rows kernels ``chunk_agg`` and ``round_stats``, at ``chip_smoke.py``'s
 timing shapes, so that two checkouts can be compared on one card in one
 call:
 
@@ -19,7 +20,12 @@ window, and the grouped kernel at the grouped deployment's C = 4, S = 4,
 G = 9, H = 128, both at B in {8, 4096}; the slab kernels on the same
 windows' chunks as raw slabs (64 MiB a set) and as their decoded slabs
 (``extract_parse``), with ``cache_cap`` = 128 cache rows, at B in {8, 16,
-32, 64, 4096}.  Prints one JSON line: per kernel and B the
+32, 64, 4096}; ``chunk_agg`` over the deployment's whole 2 GiB store
+(128 chunks of 65,536 rows, C = 16, its eight plans; 20 calls) and
+``round_stats`` on 16 of its gathered round windows (4, 4096, 256), 200
+calls.  The 2 GiB store is built once and kept at ``--rows-store`` (under
+the git-ignored ``build/``) for the next run.  Prints one JSON line: per
+kernel and B the
 device µs per call (every device activity of 200 calls, ``torch.profiler``,
 so the count does not depend on the kernels' names), the device kernels per
 call and the wall µs per call with the wrapper (CUDA events), beside the
@@ -150,6 +156,50 @@ def slab_calls(ssets, cap: int):
     return (("slot_extract_stream", k2), ("slot_eval_decoded", k3))
 
 
+def rows_store(cs, path: str):
+    """The deployment's store packed on the card, its chunk sizes and its
+    eight plans (coeffs, lo, hi) on the card: from ``path`` when an earlier
+    run left it there, else built with the checkout's ``build_store`` and
+    saved."""
+    if not os.path.exists(path):
+        values, store = cs.build_store(cs.NUM_TUPLES, cs.NUM_CHUNKS,
+                                       cs.NUM_COLS)
+        packed, sizes = store.packed_device_view("cuda")
+        _, plan = cs.deployment_plan(values)
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path + ".tmp.npz", packed=packed.cpu().numpy(),
+                 sizes=np.asarray(sizes),
+                 **{k: t.cpu().numpy() for k, t in zip(("cf", "lo", "hi"),
+                                                       plan)})
+        os.replace(path + ".tmp.npz", path)
+    z = np.load(path)
+    return (torch.as_tensor(z["packed"], device="cuda"), z["sizes"],
+            [torch.as_tensor(z[k], device="cuda") for k in ("cf", "lo", "hi")])
+
+
+def rows_calls(cs, packed, sizes, plan, rng):
+    """The two timed rows-kernel calls: ``chunk_agg`` over the whole store
+    (20 calls) and ``round_stats`` over 16 gathered windows at B = 4096
+    (200 calls)."""
+    from repro_torch.kernels.chunk_agg import chunk_agg_cuda
+    from repro_torch.kernels.round_stats import round_stats_cuda
+
+    sizes_t = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
+    slabs = []
+    for _ in range(16):
+        jw, idx, _ = cs.round_window(packed, sizes, 4096, rng)
+        slabs.append(packed[jw.long()[:, None], idx.long()].contiguous())
+    b_eff = torch.full((4,), 4096, dtype=torch.int32, device="cuda")
+
+    def k6(i):
+        return chunk_agg_cuda(packed, sizes_t, *plan)
+
+    def k7(i):
+        return round_stats_cuda(slabs[i % 16], b_eff, *plan)
+
+    return (("chunk_agg N=128", k6, 20), ("round_stats B=4096", k7, 200))
+
+
 def import_checkout(root: str):
     """chip_smoke.py and repro_torch of the checkout at ``root``."""
     root = os.path.abspath(root)
@@ -162,15 +212,26 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="checkout to time")
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--rows-store", default="build/time_rows_store.npz",
+                    help="where the 2 GiB store is kept between runs")
+    ap.add_argument("--only-rows", action="store_true",
+                    help="time chunk_agg and round_stats only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("time_slot_kernels: no CUDA device", file=sys.stderr)
         return 2
     cs = import_checkout(args.root)
-    packed_stores = stores(cs)
+    packed_stores = None if args.only_rows else stores(cs)
     rng = np.random.default_rng(5)
     out = {"root": args.root, "card": cs.card_line(), "kernels": {}}
-    for b in (8, 16, 32, 64, 4096):
+    packed, sizes, plan = rows_store(cs, args.rows_store)
+    for name, fn, iters in rows_calls(cs, packed, sizes, plan,
+                                      np.random.default_rng(31)):
+        dev, n = device_us(fn, iters)
+        out["kernels"][name] = dict(device_us=dev, device_kernels_per_call=n,
+                                    wall_us=wall_us(fn, iters))
+    del packed
+    for b in () if args.only_rows else (8, 16, 32, 64, 4096):
         sets, gsets = timing_inputs(cs, packed_stores, rng, b)
         timed = list(calls(sets, gsets)) if b in (8, 4096) else []
         timed += slab_calls(slab_inputs(cs, sets), cs.CACHE_CAP)

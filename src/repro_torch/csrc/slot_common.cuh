@@ -1,8 +1,9 @@
 // Device functions shared by the round-extraction kernels (slot_extract.cu,
 // slot_extract_stream.cu, slot_extract_grouped.cu, through slot_tile.cuh),
 // the parse kernel (extract_parse.cu) and the rows kernels (chunk_agg.cu,
-// round_stats.cu), so that every kernel parses a field, evaluates a slot and
-// reduces a window with the same instructions in the same order.  A packed
+// round_stats.cu, through rows_tile.cuh), so that every kernel parses a
+// field, evaluates a slot and reduces a window with the same instructions
+// in the same order.  A packed
 // round, a streamed raw round and a decoded round over the same rows
 // therefore give the same float bits, and a grouped round's tracked cells
 // the bits of the fan-out slots that carry the group conjunct.
@@ -21,7 +22,6 @@ constexpr int kFieldBytes = 16;
 constexpr int kIntDigits = 8;
 constexpr int kFracDigits = 6;
 constexpr int kThreads = 256;      // window rows per block
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ int byte_at(const uint32_t w[4], int i) {
   return (w[i >> 2] >> ((i & 3) * 8)) & 0xff;
@@ -75,9 +75,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Shared memory of one block (floats): coeffs, lo, hi (S*C each), is_count,
-// gate (S each), per-thread parsed values (kThreads * cs), warp partials
-// (kWarps * S * 4); then the per-slot budgets (S ints).
+// Shared-memory views of a tile block (slot_tile.cuh): the plan (coeffs,
+// lo, hi: S*C each; is_count, gate: S each), the parsed rows (cs floats a
+// row), the warps' partial sums and the per-slot budgets (S ints).
 struct Smem {
   float* coeffs;
   float* lo;
@@ -90,136 +90,11 @@ struct Smem {
   int cs;  // odd row stride of vals: conflict-free per-thread rows
 };
 
-inline size_t smem_bytes(int C, int S) {
-  const int cs = C | 1;
-  return sizeof(float) * (3 * (size_t)S * C + 2 * (size_t)S + (size_t)kThreads * cs +
-                          (size_t)kWarps * S * 4) +
-         sizeof(int) * (size_t)S;
-}
-
-__device__ __forceinline__ Smem carve(float* smem, int C, int S) {
-  Smem m;
-  m.cs = C | 1;
-  m.coeffs = smem;
-  m.lo = m.coeffs + S * C;
-  m.hi = m.lo + S * C;
-  m.isc = m.hi + S * C;
-  m.gate = m.isc + S;
-  m.vals = m.gate + S;
-  m.red = m.vals + kThreads * m.cs;
-  m.bs = reinterpret_cast<int*>(m.red + kWarps * S * 4);
-  return m;
-}
-
-// Slot s on this thread's row v (window position k): the counted flag ok
-// (k inside the slot's budget), the mask ok·gate, and the masked value x
-// and indicator pm that the four sums add up.
+// Slot s on a row (window position k): the counted flag ok (k inside the
+// slot's budget), the mask ok·gate, and the masked value x and indicator pm
+// that the four sums add up.
 struct SlotTerms {
   float ok, mask, x, pm;
 };
-
-__device__ __forceinline__ SlotTerms slot_terms(const Smem& m, const float* v, int k,
-                                                int B, int C, int s) {
-  const float* cf = m.coeffs + s * C;
-  const float* l = m.lo + s * C;
-  const float* h = m.hi + s * C;
-  bool pred = true;
-  for (int c = 0; c < C; ++c) pred = pred && (v[c] >= l[c]) && (v[c] < h[c]);
-  const float expr = linear(v, cf, C);
-  const float p = pred ? 1.0f : 0.0f;
-  SlotTerms t;
-  float x = m.isc[s] > 0.0f ? p : __fmul_rn(expr, p);
-  t.ok = (k < B && k < m.bs[s]) ? 1.0f : 0.0f;
-  t.mask = __fmul_rn(t.ok, m.gate[s]);
-  t.x = __fmul_rn(x, t.mask);
-  t.pm = __fmul_rn(p, t.mask);
-  return t;
-}
-
-// Evaluate every slot on this thread's row v (window position k) and write
-// the block's (S, 4) partial sums (m, Σx, Σx², Σp) to out: warp shuffles,
-// then a fixed-order pass over the warps.  Call after load_plan_rows, with
-// the whole block: it synchronises.
-__device__ __forceinline__ void eval_reduce(const Smem& m, const float* v, int k, int B,
-                                            int C, int S, float* __restrict__ out) {
-  __syncthreads();  // plan and budgets are in shared memory
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int s = 0; s < S; ++s) {
-    const SlotTerms t = slot_terms(m, v, k, B, C, s);
-    const float r0 = warp_sum(t.ok);
-    const float r1 = warp_sum(t.x);
-    const float r2 = warp_sum(__fmul_rn(t.x, t.x));
-    const float r3 = warp_sum(t.pm);
-    if (lane == 0) {
-      float* dst = m.red + (warp * S + s) * 4;
-      dst[0] = r0;
-      dst[1] = r1;
-      dst[2] = r2;
-      dst[3] = r3;
-    }
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < S * 4; t += kThreads) {
-    float acc = 0.0f;
-    for (int wp = 0; wp < kWarps; ++wp) acc += m.red[wp * S * 4 + t];
-    out[t] = acc;
-  }
-}
-
-// The plan of a rows pass (chunk_agg.cu, round_stats.cu): Q linear plans,
-// none a COUNT slot, all gated on, each counting the first `valid` rows.
-__device__ __forceinline__ void load_plan_rows(const Smem& m,
-                                               const float* __restrict__ coeffs,
-                                               const float* __restrict__ lo,
-                                               const float* __restrict__ hi,
-                                               int valid, int C, int S) {
-  for (int i = threadIdx.x; i < S * C; i += kThreads) {
-    m.coeffs[i] = coeffs[i];
-    m.lo[i] = lo[i];
-    m.hi[i] = hi[i];
-  }
-  for (int s = threadIdx.x; s < S; s += kThreads) {
-    m.isc[s] = 0.0f;
-    m.gate[s] = 1.0f;
-    m.bs[s] = valid;
-  }
-}
-
-// One block of a rows pass over `rows` consecutive records at `src`: thread
-// t parses record blockIdx.x·kThreads + t when it is among the first
-// `valid`, every plan is evaluated on it, and the block writes its (S, 4)
-// partial sums (rows counted, Σx, Σx², Σp) to out.
-__device__ __forceinline__ void rows_block(float* smem, const uint8_t* __restrict__ src,
-                                           long long rows, int valid, int C,
-                                           const float* __restrict__ coeffs,
-                                           const float* __restrict__ lo,
-                                           const float* __restrict__ hi, int S,
-                                           float* __restrict__ out) {
-  const Smem m = carve(smem, C, S);
-  if (valid < 0) valid = 0;
-  if ((long long)valid > rows) valid = (int)rows;
-  load_plan_rows(m, coeffs, lo, hi, valid, C, S);
-  const int k = blockIdx.x * kThreads + threadIdx.x;
-  float* v = m.vals + threadIdx.x * m.cs;
-  if (k < valid)
-    parse_record(src + (long long)k * (C * kFieldBytes), C, v);
-  else
-    for (int c = 0; c < C; ++c) v[c] = 0.0f;
-  eval_reduce(m, v, k, valid, C, S, out);
-}
-
-// stats[w, s, l] = Σ_blk partials[w, blk, s, l], summed in block order.
-__global__ void reduce_partials(const float* __restrict__ partials, int nblk, int S,
-                                float* __restrict__ stats) {
-  const int w = blockIdx.x;
-  for (int t = threadIdx.x; t < S * 4; t += blockDim.x) {
-    float acc = 0.0f;
-    for (int b = 0; b < nblk; ++b) acc += partials[((long long)w * nblk + b) * S * 4 + t];
-    stats[(long long)w * S * 4 + t] = acc;
-  }
-}
-
-inline int reduce_threads(int S) { return S * 4 < 1024 ? ((S * 4 + 31) / 32) * 32 : 1024; }
 
 }  // namespace slot

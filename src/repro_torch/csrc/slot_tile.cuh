@@ -210,10 +210,9 @@ __device__ __forceinline__ void put(const Args& a, int w, int row, int i, float 
     a.scratch[((long long)w * gridDim.x + blockIdx.x) * row + i] = v;
 }
 
-// Slot s on a row v at window position k, as slot_common.cuh::slot_terms
-// (the same float operations in the same order), with the range predicate
-// taken without branches: a lane-divergent branch per column costs more
-// than the compares.
+// Slot s on a row v at window position k (slot_common.cuh's SlotTerms),
+// with the range predicate taken without branches: a lane-divergent branch
+// per column costs more than the compares.
 __device__ __forceinline__ SlotTerms terms(const Smem& m, const float* v, int k, int B,
                                            int C, int s) {
   const float* cf = m.coeffs + s * C;

@@ -62,20 +62,23 @@ def tile_scratch(w: int, b: int, lanes: int, dev) -> torch.Tensor | None:
 
 
 #: (device index, stream handle) -> that stream's tile counters, shared by
-#: both packed kernels: one stream runs their launches in order.
+#: every kernel that folds across blocks: one stream runs their launches
+#: in order.
 _COUNTERS: dict = {}
 
 
 def tile_counters(w: int, dev, stream: int) -> torch.Tensor:
-    """The per-worker int32 tile counters of ``stream`` on ``dev``, at least
-    ``w`` of them.  Made with ``torch.zeros`` at the first call for a
-    stream (one fill kernel then, none after: the kernels' last block
-    leaves every counter at zero), so launches on one stream share them
-    in order and two streams never share them."""
+    """The per-worker (per-row-block, for the rows kernels) int32 tile
+    counters of ``stream`` on ``dev``, at least ``w`` of them.  Made with
+    ``torch.zeros`` at the first call for a stream, and again, larger, for
+    a call that needs more (one fill kernel then, none after: the kernels'
+    last block leaves every counter at zero), so launches on one stream
+    share them in order and two streams never share them."""
     key = (dev.index, stream)
     cnt = _COUNTERS.get(key)
     if cnt is None or cnt.numel() < w:
-        # 64 covers any engine's worker count at once: no regrowth
+        # 64 covers any engine's worker count at once; chunk_agg's row
+        # blocks (one per chunk) regrow it to their count
         cnt = _COUNTERS[key] = torch.zeros((max(w, 64),), dtype=torch.int32,
                                            device=dev)
     return cnt

@@ -10,9 +10,13 @@
 * Dispatch: a CPU tensor takes the plain version and launches nothing; the
   CUDA wrappers refuse CPU tensors rather than falling back.
 * On the card (marked ``cuda``; skipped without one): each kernel against
-  its plain version, and ``chunk_agg``'s totals against float64 sums of
-  the float32 parse.
+  its plain version over R, C, Q and valid counts that reach every
+  instance and split of ``csrc/rows_tile.cuh``, and ``chunk_agg``'s totals
+  against float64 sums of the float32 parse; three launches with the same
+  bits, the tile counters left at zero, NaN-filled scratch without effect.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +31,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.chunk_agg import chunk_agg_cuda
 from repro_torch.kernels.extract_parse import extract_parse_cuda
 from repro_torch.kernels.round_stats import round_stats_cuda
+from repro_torch.kernels.slot_extract import tile_counters
 
 
 @pytest.fixture
@@ -113,18 +118,34 @@ def test_cpu_tensors_launch_nothing_and_wrappers_refuse_them():
             fn(raw, sizes, coeffs, lo, hi)
 
 
+@functools.lru_cache(maxsize=16)
+def _card_rows(lead, r, c):
+    """(float64 values, encoded rows) of the card tests, made once per
+    shape."""
+    vals = make_synthetic_zipf(lead * r, c, seed=r)
+    return vals, AsciiFixedFormat(c).encode(vals).reshape(lead, r, -1)
+
+
+def _card_case(device, kernel, r, c, q):
+    lead = 4
+    raw = torch.as_tensor(_card_rows(lead, r, c)[1], device=device)
+    plan = [torch.as_tensor(a, device=device) for a in _plan(q, c, r)]
+    valid = torch.tensor([0, 1, r - 3, r], dtype=torch.int32, device=device)
+    fn = chunk_agg_cuda if kernel == "chunk_agg" else round_stats_cuda
+    return fn, raw, valid, plan
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["chunk_agg", "round_stats"])
-@pytest.mark.parametrize("r", [8, 300, 4096])
-def test_kernels_match_plain_versions_on_the_card(cuda_device, kernel, r):
-    lead, c, q = 4, 16, 8
-    vals = make_synthetic_zipf(lead * r, c, seed=r)
-    raw = torch.as_tensor(AsciiFixedFormat(c).encode(vals).reshape(
-        lead, r, -1), device=cuda_device)
-    plan = [torch.as_tensor(a, device=cuda_device) for a in _plan(q, c, r)]
-    valid = torch.tensor([r, r - 3, 0, r // 2], dtype=torch.int32,
-                         device=cuda_device)
-    fn = chunk_agg_cuda if kernel == "chunk_agg" else round_stats_cuda
+@pytest.mark.parametrize("r", [8, 300, 4096, 65536])
+@pytest.mark.parametrize("c", [4, 5, 16, 20])
+@pytest.mark.parametrize("q", [1, 8, 9])
+def test_kernels_match_plain_versions_on_the_card(cuda_device, kernel, r, c,
+                                                  q):
+    """valid counts 0, 1, R - 3 and R; C = 4 and 16 run the compiled
+    widths (Q <= 8), C = 5 and 20 and Q = 9 the general instance."""
+    fn, raw, valid, plan = _card_case(cuda_device, kernel, r, c, q)
+    lead = raw.shape[0]
     plain = tref.chunk_agg_ref if kernel == "chunk_agg" else \
         tref.round_stats_ref
     before = fn.launches
@@ -134,6 +155,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, kernel, r):
     assert fn.launches == before + 1
     got, want = got.cpu().numpy(), want.cpu().numpy()
     assert np.array_equal(got[..., 0], want[..., 0])
+    assert np.array_equal(got[..., 3], want[..., 3])
     # the kernel parses by int32 Horner (a few ulp from the plain per-digit
     # sums) and sums rows in blocks: see chip_smoke.py for the derivation
     np.testing.assert_allclose(got[..., 1:], want[..., 1:],
@@ -156,3 +178,30 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, kernel, r):
         np.testing.assert_allclose(got[..., 1], exact,
                                    rtol=(r // 256 + 64) * 2.0 ** -24)
         assert np.array_equal(got[..., 3], p.sum(1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["chunk_agg", "round_stats"])
+@pytest.mark.parametrize("r,c,q", [(300, 16, 8), (4096, 16, 8),
+                                   (65536, 16, 8), (4096, 5, 9)])
+def test_kernels_repeat_bits_and_leave_counters_zero(cuda_device, kernel, r,
+                                                     c, q, monkeypatch):
+    """Three launches on the same inputs give the same bits (the fold's
+    order does not depend on which block finishes last), the tile counters
+    are left at zero, and output and scratch memory that ``torch.empty``
+    hands out NaN-filled leak nothing into the result."""
+    fn, raw, valid, plan = _card_case(cuda_device, kernel, r, c, q)
+    runs = [fn(raw, valid, *plan) for _ in range(3)]
+    empty = torch.empty
+
+    def dirty(*shape, **kw):
+        t = empty(*shape, **kw)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", dirty)
+    runs.append(fn(raw, valid, *plan))
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        assert torch.equal(runs[0].view(torch.int32), again.view(torch.int32))
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert not tile_counters(raw.shape[0], cuda_device, stream).any()

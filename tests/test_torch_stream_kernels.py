@@ -341,11 +341,15 @@ def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
 
 
 def test_package_kernels_include_the_shared_header():
-    # the packed and slab kernels reach slot_common.cuh through slot_tile.cuh
+    # the packed and slab kernels reach slot_common.cuh through slot_tile.cuh,
+    # the rows kernels through rows_tile.cuh (which takes slot_tile.cuh's
+    # copy and layout helpers)
     tile = {"slot_tile.cuh"}
+    rows = {"rows_tile.cuh", "slot_tile.cuh"}
     for name, more in (("slot_extract", tile), ("slot_extract_grouped", tile),
                        ("slot_extract_stream", tile),
-                       ("extract_parse", set())):
+                       ("extract_parse", set()), ("chunk_agg", rows),
+                       ("round_stats", rows)):
         files: dict = {}
         _build._closure(_build.CSRC / f"{name}.cu", files)
         assert {p.name for p in files} == {f"{name}.cu", "slot_common.cuh",
