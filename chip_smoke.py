@@ -63,13 +63,42 @@ either is missing or any phase fails.  Phases:
                five largest tracked cells within 3·ε of their exact totals
                and a non-empty __other__ cell, the grouped kernel launched
                once per round and no other kernel.
-9. times     — each kernel's time per launch beside its bound and the plain
+9. ptf       — the paper's verification chain (EstimationController
+               .run_verification) on explore_ptf.py's batch (32,768 PTF-like
+               tuples, 64 binary chunks, the ``ref`` extraction path), card
+               against CPU: same verdicts, stop, rounds and tuples; then the
+               same three HAVING checks over 8,388,608 PTF-like tuples as
+               fixed-width ASCII in 128 chunks on the card, through kernel 1
+               (launches == rounds).  Each verdict equals the float64
+               truth's and the chain stops where the truth says.
+10. sched parity — the SLO scheduler on the small example table with SLOs
+               (max_slots=2, slot_capacity=1.0, preemption), card against
+               CPU: integer state equal every round under the committed
+               claim order; under the variance order equal up to the first
+               round whose claim orders differ, where the swapped chunks'
+               keys must agree within a float32 relative 1e-5 (a near tie).
+               On the card, bit for bit: NEUTRAL == unscheduled and
+               scheduled stream == scheduled packed.
+11. sched     — the scheduled deployment: the packed deployment's store
+               (the copy already on the card) and queries with
+               bench_workload.py's sched lane (its SLO mix, Poisson
+               arrivals at 2,000 per modeled second), max_slots=4,
+               SchedulerConfig(slot_capacity=2.0, preempt=True), variance
+               claims.  Every query completes; one that retired on its own
+               within 3·ε of exact, a shed or deadline-stopped one within 3x
+               its own error ratio; kernel 1 launches == rounds; a round ran
+               with a fairness weight below 1, and kernel 1 on that round's
+               inputs matches its plain version in one device kernel.
+12. rollup    — bench_workload.py's hot/cold mix (56 queries) on the same
+               store with max_slots=8 and RollupConfig(promote_hits=2): a
+               tier-1 answer, every answer within 3·ε, launches == rounds.
+13. times     — each kernel's time per launch beside its bound and the plain
                version's time, the device kernels each call runs (one for
                every kernel but extract_parse), the mean server
                rounds, the kernel's share of round time and the tally
                fold's, each beside the card's name and power limit.
 
-``--kernels`` runs phases 1, 2 and the kernel times of 9 on the same
+``--kernels`` runs phases 1, 2 and the kernel times of 13 on the same
 stores and exits 0 when they pass, printing no result lines.
 
 The line before the last is one JSON object describing every kernel; the
@@ -94,13 +123,14 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch.core.controller import EstimationController  # noqa: E402
 from repro_torch.core.engine import EngineConfig, SlotOLAEngine  # noqa: E402
 from repro_torch.core.queries import (  # noqa: E402
-    And, Column, GroupBy, Having, Linear, Query, Range, empty_slot_table,
-    encode_slot, linear_plan, slot_table_set)
+    TRUE, And, Column, GroupBy, Having, Linear, Query, Range,
+    empty_slot_table, encode_slot, linear_plan, slot_table_set)
 from repro_torch.data.chunkstore import ChunkStore  # noqa: E402
 from repro_torch.data.generator import (  # noqa: E402
-    make_synthetic_zipf, make_wiki_like, store_dataset)
+    make_ptf_like, make_synthetic_zipf, make_wiki_like, store_dataset)
 from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -117,8 +147,12 @@ from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
     slot_eval_decoded_cuda, slot_extract_stream_cuda)
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
+from repro_torch.sched import (  # noqa: E402
+    NEUTRAL, QuerySLO, SchedulerConfig, WorkloadScheduler,
+    scan_tuples_per_s, slot_chunk_variances)
 from repro_torch.serve.ola_server import (  # noqa: E402
     OLAWorkloadServer, ServerOptions, poisson_workload)
+from repro_torch.serve.rollup import RollupConfig  # noqa: E402
 
 # the deployment (see the module docstring)
 NUM_TUPLES = 8_388_608
@@ -155,6 +189,32 @@ GROUP_TOP_K = 5
 # the grouped smoke lane (parity phase): 8,192 tuples, 12 chunks, 16
 # languages, the first four of the same queries
 LANE = dict(tuples=8192, chunks=12, langs=16, queries=4)
+
+# the verification chain: examples/explore_ptf.py's batch (32,768 PTF-like
+# tuples, seed 1, 64 binary chunks, a 4,096-tuple synopsis), and the same
+# checks over a fixed-width ASCII PTF-like table of the deployment's size
+PTF = dict(tuples=32768, chunks=64, seed=1)
+PTF_ENGINE = dict(num_workers=4, strategy="resource_aware", seed=3)
+PTF_SYNOPSIS = 4096
+PTF_ASCII = dict(tuples=8_388_608, chunks=128)
+# the scheduled deployment: bench_workload.py's sched lane on the packed
+# deployment's table and queries: its SLO mix (seed 12), its Poisson
+# arrivals at 2,000 per modeled second (seed 11) and its capacity rule
+# max(2, slots / 2).  At the packed cell's 20 arrivals per modeled second
+# no more than two queries were ever resident at once (8,388,608 tuples on
+# an H100 80GB HBM3 at 700 W), so a capacity of 2.0 never divided a
+# round's budget.
+SLO_SEED = 12
+SCHED_RATE = 2000.0
+SCHED_OPTIONS = dict(max_slots=4, synopsis_budget_tuples=4096)
+SCHED_CAPACITY = 2.0
+# the hot/cold mix: bench_workload.py's rollup lane (4 hot patterns x 10
+# repeats, 16 cold queries, seed 21; Poisson arrivals at 2,000 per modeled
+# second, seed 22)
+ROLLUP_MIX = dict(n_hot=4, repeats=10, n_cold=16, seed=21)
+ROLLUP_RATE = 2000.0
+ROLLUP_ARRIVAL_SEED = 22
+ROLLUP_OPTIONS = dict(max_slots=8, synopsis_budget_tuples=4096)
 
 # window widths of the kernel checks: a partial warp, one warp, a warp and
 # a bit, two warps, one tile of 256 positions, two tiles, the engine's
@@ -337,6 +397,21 @@ def exact_answer(values: np.ndarray, q: Query) -> float:
     if q.agg == "sum":
         return float(x[sel].sum())
     return float(x[sel].mean())
+
+
+def exact_answers(values: np.ndarray, queries) -> dict:
+    """exact_answer of every query by name, each distinct coefficient row
+    projected once."""
+    proj, out = {}, {}
+    for q in queries:
+        plan, sel = plan_selection(values, q)
+        key = plan.coeffs[0].tobytes()
+        if key not in proj:
+            proj[key] = values @ plan.coeffs[0].astype(np.float64)
+        x = proj[key][sel]
+        out[q.name] = float({"count": sel.sum(), "sum": x.sum(),
+                             "avg": x.mean()}[q.agg])
+    return out
 
 
 # --------------------------------------------------------------- build ----
@@ -1127,6 +1202,702 @@ def phase_stream_parity() -> dict:
     return {k: dict(rounds=len(t), modes=m) for k, (t, m) in runs.items()}
 
 
+# ---------------------------------------------------------- serving plane ----
+def ptf_queries() -> list[Query]:
+    """examples/explore_ptf.py's three verification checks."""
+    return [
+        Query(agg="avg", expr=Column(4), pred=TRUE,
+              having=Having("<", 0.05), epsilon=0.05,
+              name="avg_mag_err<0.05"),
+        Query(agg="count", pred=Range(3, 0.0, 17.0),
+              having=Having(">", 500.0), epsilon=0.05, name="bright>500"),
+        Query(agg="avg", expr=Column(3), pred=TRUE,
+              having=Having("<", 22.0), epsilon=0.05, name="avg_mag<22"),
+    ]
+
+
+def having_holds(q: Query, v: float) -> bool:
+    t = q.having.threshold
+    return {"<": v < t, "<=": v <= t, ">": v > t, ">=": v >= t}[q.having.op]
+
+
+def check_chain(values: np.ndarray, results, tag: str) -> None:
+    """Every verdict is the float64 truth's (an undecided verdict is judged
+    on the point estimate, as the chain does) and the chain stops where the
+    truth says it stops."""
+    queries = ptf_queries()
+    truth = [having_holds(q, exact_answer(values, q)) for q in queries]
+    want_len = next((i + 1 for i, t in enumerate(truth) if not t),
+                    len(queries))
+    for q, r, t in zip(queries, results, truth):
+        verdict = int(r.decisions[0])
+        est = float(r.final_estimate[0])
+        log(f"[ptf] {tag} {q.name:>18}: verdict {verdict:2d} estimate "
+            f"{est:.7g} exact {exact_answer(values, q):.7g} rounds "
+            f"{r.rounds} tuples {100 * r.tuples_ratio:.3f}% synopsis "
+            f"{r.from_synopsis}")
+        passed = verdict == 1 or (verdict == -1 and having_holds(q, est))
+        if passed != t:
+            raise AssertionError(f"[ptf] {tag} {q.name}: verdict {verdict} "
+                                 f"but the float64 truth says {t}")
+    if len(results) != want_len:
+        raise AssertionError(f"[ptf] {tag}: the chain ran {len(results)} "
+                             f"queries, the truth stops after {want_len}")
+
+
+def run_chain(store, device: str, **engine):
+    ctrl = EstimationController(store, EngineConfig(**PTF_ENGINE, **engine),
+                                synopsis_budget_tuples=PTF_SYNOPSIS,
+                                device=device)
+    return ctrl.run_verification(ptf_queries())
+
+
+def phase_ptf() -> dict:
+    """The paper's verification chain on the frozen plane: explore_ptf.py's
+    batch (binary records, so the ``ref`` extraction path) card against
+    CPU, then the same checks over a fixed-width ASCII PTF-like table on
+    the card, through kernel 1."""
+    values = make_ptf_like(PTF["tuples"], PTF["chunks"], seed=PTF["seed"])
+    store = store_dataset(values, num_chunks=PTF["chunks"], fmt="binary")
+    t0 = time.perf_counter()
+    card = run_chain(store, "cuda", extract_backend="ref")
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    cpu = run_chain(store, "cpu", extract_backend="ref")
+    if len(card) != len(cpu):
+        raise AssertionError("[ptf] card and cpu chains stop at different "
+                             "queries")
+    for q, a, b in zip(ptf_queries(), card, cpu):
+        if not (np.array_equal(a.decisions, b.decisions)
+                and np.array_equal(a.stopped, b.stopped)
+                and (a.rounds, a.tuples_ratio, a.chunks_ratio,
+                     a.from_synopsis) == (b.rounds, b.tuples_ratio,
+                                          b.chunks_ratio, b.from_synopsis)):
+            raise AssertionError(f"[ptf] {q.name}: card and cpu differ")
+    check_chain(values, card, "binary card")
+    log(f"[ptf] binary batch ({store.num_tuples} tuples, {store.num_chunks} "
+        f"chunks): card == cpu in verdicts, stop, rounds and tuples over "
+        f"{len(card)} queries, {sum(r.rounds for r in card)} rounds, "
+        f"{card_s:.2f} s on the card")
+
+    t0 = time.perf_counter()
+    values = make_ptf_like(PTF_ASCII["tuples"], PTF_ASCII["chunks"],
+                           seed=PTF["seed"])
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        store = store_dataset(values, num_chunks=PTF_ASCII["chunks"],
+                              fmt="ascii", encode_map=pool.map)
+    log(f"[ptf] ASCII table: {store.num_tuples} tuples x 8 columns, "
+        f"{store.num_chunks} chunks, {store.codec.record_bytes}-byte records "
+        f"({store.num_tuples * store.codec.record_bytes / 2**30:.2f} GiB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_chain(store, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_chain(values, results, "ascii card")
+    rounds = sum(r.rounds for r in results)
+    launches = counts["slot_extract"]
+    log(f"[ptf] ASCII chain: {len(results)} queries, {rounds} rounds, "
+        f"kernel 1 launches {launches}, wall {wall:.3f} s "
+        f"({wall / max(rounds, 1) * 1e3:.3f} ms per round; each query "
+        f"builds its engine and packs the store)")
+    if launches != rounds or sum(counts.values()) != launches:
+        raise AssertionError(f"[ptf] kernel 1 launches {launches} != rounds "
+                             f"{rounds}, or another kernel ran: {counts}")
+    return dict(rounds=rounds, launches=launches, wall_s=wall)
+
+
+def attach_slos(queries, t_full: float, seed: int) -> list:
+    """bench_workload.py's SLO mix: priorities batch/normal/interactive
+    with p = 0.3/0.5/0.2, deadlines U(0.15, 2.5) x the modeled full-scan
+    time."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in queries:
+        pri = str(rng.choice(["batch", "normal", "interactive"],
+                             p=[0.3, 0.5, 0.2]))
+        dl = float(rng.uniform(0.15, 2.5)) * t_full
+        out.append(QuerySLO(deadline_s=dl, priority=pri))
+    return out
+
+
+SCHED_TRACE = ("cur", "head", "offset", "scan_m", "closed", "schedule",
+               "stopped")
+SCHED_FLOATS = ("budget", "t_io", "t_cpu")
+
+
+def sched_trace(trace: list, floats: bool):
+    """on_round recording a server's integer state (and, with ``floats``,
+    its float state) and the slot table's weights after every round."""
+    def on_round(srv):
+        st = srv.state
+        rec = {f: getattr(st, f).cpu().numpy() for f in SCHED_TRACE}
+        rec["stats.m"] = st.stats.m.cpu().numpy()
+        rec["weight"] = srv.table.weight.cpu().numpy()
+        if floats:
+            for f in SCHED_FLOATS:
+                rec[f] = getattr(st, f).cpu().numpy()
+            for f in ("ysum", "ysq", "psum"):
+                rec[f"stats.{f}"] = getattr(st.stats, f).cpu().numpy()
+        trace.append(rec)
+    return on_round
+
+
+def parity_slo_workload(values) -> list:
+    """small_workload with SLOs: a batch SUM, an interactive COUNT, an
+    interactive HAVING query with a deadline, a normal AVG and a tight SUM
+    with no SLO."""
+    slos = [QuerySLO(priority="batch"), QuerySLO(priority="interactive"),
+            QuerySLO(priority="interactive", deadline_s=0.05),
+            QuerySLO(priority="normal"), None]
+    return [(q, at, slo) for (q, at), slo in zip(small_workload(values),
+                                                 slos)]
+
+
+def topup_phases() -> list:
+    """test_sched.py's variance top-up workload with SLOs: a near-certain
+    COUNT closes chunks early, then a tight SUM and two more queries drive
+    the scan into a top-up pass, where the variance order reorders the
+    re-opened tail."""
+    coef = tuple(1.0 / (k + 1) for k in range(8))
+
+    def total(name, eps):
+        return Query(agg="sum", expr=Linear(coef), epsilon=eps, name=name)
+
+    return [
+        [(Query(agg="count", pred=Range(0, 0.0, 1e12), epsilon=0.02,
+                name="loose"), 0.0, None, "single_pass")],
+        [(total("tight", 0.005), None, QuerySLO(priority="interactive"),
+          "single_pass"),
+         (total("bat", 0.01), None, QuerySLO(priority="batch"), None),
+         (Query(agg="avg", expr=Linear(coef), epsilon=0.01, name="d"), None,
+          QuerySLO(priority="interactive", deadline_s=5e-3), None)],
+    ]
+
+
+def serve_traced(store, device: str, scheduler, phases, floats: bool,
+                 residency: str = "packed",
+                 engine=dict(num_workers=4, seed=7)) -> dict:
+    """Serve ``phases`` (lists of (query, arrival, slo, plan) items, each
+    submitted once the previous one has run out) with max_slots=2: the
+    per-round trace, the results, and the claim keys the scheduler
+    computed before each round."""
+    keys = []
+    if scheduler is not None:
+        order = scheduler.claim_order
+
+        def claim_order(state, sizes, active=None, slot_need=None):
+            keys.append(slot_chunk_variances(state, active, slot_need))
+            return order(state, sizes, active, slot_need)
+
+        scheduler.claim_order = claim_order
+    trace = []
+    with OLAWorkloadServer(
+            store, EngineConfig(residency=residency, **engine),
+            options=ServerOptions(max_slots=2, scheduler=scheduler),
+            device=device) as server:
+        hooks = hook_timer(server, ("_apply_scheduling", "_admit_ready"))
+        t0 = time.perf_counter()
+        for phase in phases:
+            for q, at, slo, plan in phase:
+                server.submit(q, arrival_t=at, slo=slo, plan=plan)
+            server.run(on_round=sched_trace(trace, floats))
+        wall = time.perf_counter() - t0
+        return dict(trace=trace, results=sorted(server.results,
+                                                key=lambda r: r.qid),
+                    rounds=server.rounds, keys=keys, wall_s=wall,
+                    hooks_s=hooks["s"],
+                    shed=server.shed_count, preempt=server.preempt_count,
+                    topups=server.topup_passes)
+
+
+RESULT_INTS = ("qid", "name", "plan", "sched_outcome", "slo_met",
+               "rounds_resident", "tuples_seen", "seeded_tuples", "decision",
+               "unserved")
+RESULT_FLOATS = ("estimate", "lo", "hi", "err", "t_admit", "t_done")
+# the near-tie tolerance of two claim keys (float32 relative)
+F32_RTOL = 1e-5
+
+
+def first_divergence(a: list, b: list):
+    """The first round whose integer state differs, or None."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        for f in SCHED_TRACE + ("stats.m",):
+            if not np.array_equal(x[f], y[f]):
+                return r
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def bitwise_equal(a: dict, b: dict, what: str) -> None:
+    if a["rounds"] != b["rounds"] or len(a["trace"]) != len(b["trace"]):
+        raise AssertionError(f"{what}: rounds differ")
+    for r, (x, y) in enumerate(zip(a["trace"], b["trace"])):
+        for f in x:
+            if not np.array_equal(x[f], y[f]):
+                raise AssertionError(f"{what}: round {r}: {f} differs")
+    for p, q in zip(a["results"], b["results"], strict=True):
+        for f in RESULT_INTS + RESULT_FLOATS:
+            u, v = getattr(p, f), getattr(q, f)
+            if not (u == v or (u != u and v != v)):
+                raise AssertionError(f"{what}: {p.name}: {f} differs")
+
+
+def near_tie(card: dict, cpu: dict, first: int) -> tuple:
+    """At the first divergent round the claim orders must differ, and the
+    first two chunks they swap must have keys within F32_RTOL of each
+    other in both runs."""
+    sa = card["trace"][first]["schedule"]
+    sb = cpu["trace"][first]["schedule"]
+    if np.array_equal(sa, sb):
+        raise AssertionError(f"[sched-parity] variance: integer state "
+                             f"diverged at round {first} under the same "
+                             "claim order")
+    p = int(np.flatnonzero(sa != sb)[0])
+    ja, jb = int(sa[p]), int(sb[p])
+    for k in (card["keys"][first], cpu["keys"][first]):
+        scale = max(abs(k[ja]), abs(k[jb]), 1e-30)
+        if abs(k[ja] - k[jb]) > F32_RTOL * scale:
+            raise AssertionError(
+                f"[sched-parity] variance: round {first} swapped chunks "
+                f"{ja} and {jb} with keys {k[ja]!r} and {k[jb]!r}: not a "
+                "near tie")
+    return p, ja, jb
+
+
+def phase_sched_parity() -> dict:
+    """The scheduler on the card against the CPU on the small example table
+    with SLOs (max_slots=2, SchedulerConfig(slot_capacity=1.0,
+    preempt=True)): integer state equal every round under the committed
+    claim order; under the variance order equal up to the first round the
+    orders differ, where the swapped chunks' keys must be a near tie, and
+    every answer that retired on its own within 3·ε after it.  Then, on
+    the card, bit for bit: NEUTRAL == unscheduled, scheduled stream ==
+    scheduled packed."""
+    values = make_synthetic_zipf(num_tuples=16384, num_cols=8, seed=0)
+    store = store_dataset(values, num_chunks=64, fmt="ascii")
+    work = [[(q, at, slo, None)
+             for q, at, slo in parity_slo_workload(values)]]
+    tvalues = make_synthetic_zipf(num_tuples=4096, num_cols=8, seed=3)
+    tstore = store_dataset(tvalues, num_chunks=32, fmt="ascii")
+    topup = dict(engine=dict(num_workers=2, seed=29))
+    cases = {
+        "schedule": (store, values, work, {}),
+        "variance": (store, values, work, {}),
+        "variance, top-up": (tstore, tvalues, topup_phases(), topup),
+    }
+    out = {}
+    for case, (st, vals, phases, kw) in cases.items():
+        policy = case.split(",")[0]
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            sched = WorkloadScheduler(SchedulerConfig(
+                slot_capacity=1.0, preempt=True, claim_policy=policy))
+            runs[dev] = serve_traced(st, dev, sched, phases, floats=False,
+                                     **kw)
+        card, cpu = runs["cuda"], runs["cpu"]
+        first = first_divergence(card["trace"], cpu["trace"])
+        col = [t["schedule"] for t in card["trace"]]
+        reorders = sum(not np.array_equal(s, col[0]) for s in col)
+        contended = sum(bool((t["weight"] < 1).any())
+                        for t in card["trace"])
+        facts = (f"{card['rounds']} rounds ({contended} with a weight below "
+                 f"1, {reorders} with a reordered claim tail, top-up passes "
+                 f"{card['topups']}, shed {card['shed']}, preempted "
+                 f"{card['preempt']}); on the card "
+                 f"{card['wall_s'] / card['rounds'] * 1e3:.3f} ms per round "
+                 f"with the per-round trace, scheduler hooks and intake "
+                 f"{card['hooks_s'] / card['rounds'] * 1e3:.4f} ms host per "
+                 "round")
+        if first is None:
+            for a, b in zip(card["results"], cpu["results"], strict=True):
+                for f in RESULT_INTS:
+                    if getattr(a, f) != getattr(b, f):
+                        raise AssertionError(f"[sched-parity] {case}: "
+                                             f"{a.name}: {f} differs")
+            log(f"[sched-parity] {case}: card == cpu on integer state and "
+                f"per-query outcomes over {facts}")
+        elif policy == "schedule":
+            raise AssertionError(f"[sched-parity] {case}: card and cpu "
+                                 f"diverge at round {first}")
+        else:
+            p, ja, jb = near_tie(card, cpu, first)
+            log(f"[sched-parity] {case}: card and cpu equal up to round "
+                f"{first}, where the claim orders swap chunks {ja} and {jb} "
+                f"at position {p} on a near tie of their keys; {facts}")
+            results = {r.name: r for r in card["results"]}
+            for q in [x[0] for phase in phases for x in phase]:
+                r = results[q.name]
+                retired = (r.sched_outcome in ("admitted", "queued",
+                                               "preempted")
+                           and not r.unserved and r.err <= q.epsilon)
+                ex = exact_answer(vals, q)
+                if retired and abs(r.estimate - ex) > 3 * q.epsilon * abs(ex):
+                    raise AssertionError(f"[sched-parity] {case}: {r.name} "
+                                         "outside 3·eps")
+        for r in card["results"]:
+            log(f"[sched-parity] {case} {r.name:>14} {r.sched_outcome:>9} "
+                f"slo_met {str(r.slo_met):>5} rounds {r.rounds_resident:3d} "
+                f"seen {r.tuples_seen:5d} estimate {r.estimate:.7g}")
+        out[case] = dict(rounds=card["rounds"], first=first,
+                         reorders=reorders, contended=contended)
+    if not out["variance, top-up"]["reorders"]:
+        raise AssertionError("[sched-parity] the top-up workload never "
+                             "reordered the claim tail")
+    plain = [[(q, at, None, None) for q, at, _, _ in work[0]]]
+    base = serve_traced(store, "cuda", None, plain, floats=True)
+    neutral = serve_traced(store, "cuda", WorkloadScheduler(NEUTRAL), plain,
+                           floats=True)
+    # the streamed run under the variance order on the top-up workload,
+    # where the tail is reordered between rounds
+    streamed = {residency: serve_traced(
+        tstore, "cuda", WorkloadScheduler(SchedulerConfig(
+            slot_capacity=1.0, preempt=True)), topup_phases(), floats=True,
+        residency=residency, **topup)
+        for residency in ("packed", "stream")}
+    bitwise_equal(streamed["stream"], streamed["packed"],
+                  "[sched-parity] scheduled stream vs packed, top-up")
+    bitwise_equal(neutral, base, "[sched-parity] NEUTRAL vs unscheduled")
+    runs = {residency: serve_traced(
+        store, "cuda", WorkloadScheduler(SchedulerConfig(
+            slot_capacity=1.0, preempt=True)), work, floats=True,
+        residency=residency) for residency in ("packed", "stream")}
+    bitwise_equal(runs["stream"], runs["packed"],
+                  "[sched-parity] scheduled stream vs packed")
+    log(f"[sched-parity] on the card, bit for bit: NEUTRAL == unscheduled "
+        f"({base['rounds']} rounds); scheduled stream == scheduled packed "
+        f"({runs['packed']['rounds']} rounds, and "
+        f"{streamed['packed']['rounds']} on the top-up workload, variance "
+        "claims)")
+    return out
+
+
+def hook_timer(server, names: tuple) -> dict:
+    """Accumulate the host seconds spent in the server methods ``names``."""
+    spent = {"s": 0.0}
+    for name in names:
+        fn = getattr(server, name)
+
+        def timed(*args, _fn=fn, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent["s"] += time.perf_counter() - t
+
+        setattr(server, name, timed)
+    return spent
+
+
+@contextlib.contextmanager
+def resident(store, packed: torch.Tensor):
+    """Meanwhile a server built over ``store`` takes ``packed``, the copy
+    already on the card, instead of packing the store again."""
+    store.packed_device_view = lambda device: (packed, store.chunk_sizes)
+    try:
+        yield
+    finally:
+        del store.packed_device_view
+
+
+@contextlib.contextmanager
+def capture_kernel1(pred):
+    """Meanwhile the arguments of the first ``ops.slot_extract`` call that
+    satisfies ``pred`` are kept (all but the store cloned)."""
+    kept = {}
+    fn = ops.slot_extract
+
+    def wrapped(*args, **kw):
+        if not kept and pred(*args, **kw):
+            kept["args"] = tuple(a.clone() if i and isinstance(
+                a, torch.Tensor) else a for i, a in enumerate(args))
+            kept["kw"] = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                          for k, v in kw.items()}
+        return fn(*args, **kw)
+
+    ops.slot_extract = wrapped
+    try:
+        yield kept
+    finally:
+        ops.slot_extract = fn
+
+
+# TRACE_LOSS: on an H100 80GB HBM3 at 700 W (torch 2.11, CUDA 12.8) a
+# torch.profiler trace of 200 calls of kernel 1 held all 200 launches at
+# the first trace of a process, 199 about 15 s later, 198 after 30 s, 191
+# after two minutes and 190 after 130 s, every launch really made (the
+# launch counters and launches == rounds say so); idle margins of 50 ms at
+# both ends of the trace did not help.  A count taken late in the smoke is
+# therefore taken in a fresh process.
+FRESH_TRACE = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as m
+d = torch.load(sys.argv[2])
+inputs = [t.cuda() for t in d["inputs"]]
+ms, per_call = m.device_ms(
+    lambda _: m.slot_extract_cuda(*inputs, return_cols=d["return_cols"]),
+    d["iters"], ("slot_extract_tiles",))
+print(json.dumps({"ms": ms, "per_call": per_call}))
+"""
+
+
+def fresh_kernel1_trace(inputs, return_cols: bool, iters: int) -> dict:
+    """device_ms of kernel 1 on ``inputs`` in a fresh process (the first
+    trace of a process keeps every launch, see TRACE_LOSS): the store cut
+    to the window's chunks, traced up to three times until the count of
+    device activities is a whole number per call."""
+    packed, jw, *rest = inputs
+    small = packed[jw.long()].contiguous()          # (W, M_max, rec)
+    ids = torch.arange(jw.shape[0], dtype=torch.int32, device=jw.device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = os.path.join(tmp, "inputs.pt")
+        torch.save({"inputs": [t.cpu() for t in (small, ids, *rest)],
+                    "return_cols": return_cols, "iters": iters}, path)
+        for attempt in range(3):
+            out = subprocess.run(
+                [sys.executable, "-c", FRESH_TRACE, REPO, path],
+                capture_output=True, text=True, timeout=300, check=True)
+            t = json.loads(out.stdout.strip().splitlines()[-1])
+            if t["per_call"] is not None and t["per_call"] == round(
+                    t["per_call"]):
+                break
+            log(f"[times] slot_extract: fresh trace {attempt + 1} lost "
+                f"events ({t['per_call']} device activities per call)")
+    return t
+
+
+def served_kernel_check(kept: dict, tag: str) -> dict:
+    """Kernel 1 on a served round's own inputs: against its plain version
+    (check_kernel's tolerances, three launches with the same bits) and one
+    device kernel per call, counted in a fresh process."""
+    packed, jw, idx, b_eff, coeffs, lo, hi, isc, gate = kept["args"]
+    kw = kept["kw"]
+
+    def i32(t):
+        return t.to(torch.int32).contiguous()
+
+    def f32(t):
+        return t.to(torch.float32).contiguous()
+
+    inputs = (packed, i32(jw), i32(idx), i32(b_eff), f32(coeffs), f32(lo),
+              f32(hi), f32(isc), f32(gate), f32(kw["weights"]))
+    rc = bool(kw.get("return_cols", False))
+    row = check_kernel(inputs, rc)
+
+    fresh = fresh_kernel1_trace(inputs, rc, 50)
+    one_launch("slot_extract", fresh["per_call"])
+    t = dict(device_ms=fresh["ms"], kernels_per_call=fresh["per_call"],
+             call_ms=time_cuda(lambda _: slot_extract_cuda(
+                 *inputs, return_cols=rc), 50))
+    weights = np.round(kw["weights"].cpu().numpy(), 4).tolist()
+    log(f"[{tag}] kernel 1 on a served round's inputs (B={idx.shape[1]}, "
+        f"weights {weights}): m lane equal, sums max rel err "
+        f"{row['max_rel_err_sums']:.3g} (rtol {row['rtol_sums']:.3g}), 3 "
+        f"launches with the same bits; {t['kernels_per_call']} device "
+        f"kernel(s) per call and {us(t['device_ms'])} us device time per "
+        f"launch (traced in a fresh process, the store cut to the window's "
+        f"{jw.shape[0]} chunks)")
+    return dict(row, **t)
+
+
+def phase_sched(store, values, packed) -> dict:
+    """The scheduled deployment: the packed deployment's table and queries
+    with bench_workload.py's sched-lane arrivals (SCHED_RATE) and SLO mix
+    (seed SLO_SEED), max_slots=4 and SchedulerConfig(slot_capacity=2.0,
+    preempt=True) with variance claims.  Every query completes; one that retired on its own is
+    within 3·ε of exact, a shed or deadline-stopped one within 3x its own
+    error ratio; kernel 1 launches once per round; some round ran with a
+    fairness weight below 1, and kernel 1 is checked on that round's
+    inputs."""
+    queries = deployment_queries(values)
+    arrivals = [at for _, at in poisson_workload(
+        queries, SCHED_RATE, seed=ARRIVAL_SEED)]
+    cfg = EngineConfig(**ENGINE)
+    t_full = float(store.num_tuples) / scan_tuples_per_s(store, cfg)
+    slos = attach_slos(queries, t_full, seed=SLO_SEED)
+    exact = exact_answers(values, queries)
+    sched = WorkloadScheduler(SchedulerConfig(slot_capacity=SCHED_CAPACITY,
+                                              preempt=True))
+    with resident(store, packed):
+        server = OLAWorkloadServer(store, cfg, options=ServerOptions(
+            scheduler=sched, **SCHED_OPTIONS), device="cuda")
+    try:
+        for q, at, slo in zip(queries, arrivals, slos):
+            server.submit(q, arrival_t=at, slo=slo)
+        hooks = hook_timer(server, ("_apply_scheduling",
+                                    "_admit_ready_scheduled"))
+        contended = {"rounds": 0, "reorders": 0}
+        order = sched.claim_order
+
+        def claim_order(*args, **kw):
+            out = order(*args, **kw)
+            contended["reorders"] += out is not None
+            return out
+
+        sched.claim_order = claim_order
+
+        def on_round(srv):
+            contended["rounds"] += bool((srv._weights < 1).any())
+
+        def below_one(*args, weights=None, **kw):
+            return bool((weights < 1).any())
+
+        reset_launches()
+        t0 = time.perf_counter()
+        with capture_kernel1(below_one) as kept:
+            results = server.run(on_round=on_round)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        server.close()
+    rounds = server.rounds
+    if server.truncated or len(results) != len(queries):
+        raise AssertionError("[sched] run truncated or a query never "
+                             "completed")
+    log(f"[sched] {'query':>16} {'priority':>11} {'outcome':>9} "
+        f"{'slo_met':>7} {'wait':>9} {'rounds':>6} {'seen':>8} "
+        f"{'dev/eps':>7} {'err':>7}")
+    failures = []
+    outcomes: dict[str, int] = {}
+    for r, q in zip(results, queries):
+        outcomes[r.sched_outcome] = outcomes.get(r.sched_outcome, 0) + 1
+        ex = exact[q.name]
+        dev = abs(r.estimate - ex) / abs(ex)
+        on_its_own = (r.sched_outcome != "shed"
+                      and (r.err <= q.epsilon or r.decision != -1))
+        bound = 3 * q.epsilon if on_its_own else 3 * r.err
+        if not (np.isfinite(r.estimate) and dev <= bound):
+            failures.append(r.name)
+        log(f"[sched] {r.name:>16} {r.priority:>11} {r.sched_outcome:>9} "
+            f"{str(r.slo_met):>7} {r.queue_wait:9.5f} "
+            f"{r.rounds_resident:6d} {r.tuples_seen:8d} "
+            f"{dev / q.epsilon:7.3f} {r.err:7.4f}")
+    launches = counts["slot_extract"]
+    log(f"[sched] rounds {rounds}, tuples_scanned {server.tuples_scanned}, "
+        f"outcomes {outcomes}, admission decisions "
+        f"{sched.admission.decisions}, shed {server.shed_count}, preempted "
+        f"{server.preempt_count}, rounds with a weight below 1: "
+        f"{contended['rounds']}, claim tails reordered: "
+        f"{contended['reorders']}; kernel 1 launches {launches}; wall "
+        f"{wall:.3f} s, mean server round {wall / rounds * 1e3:.3f} ms, "
+        f"scheduler hooks (_apply_scheduling + scheduled intake) "
+        f"{hooks['s'] / rounds * 1e3:.4f} ms host per round; full-scan "
+        f"time {t_full:.4f} modeled s")
+    if failures:
+        raise AssertionError(f"[sched] estimates outside their bounds: "
+                             f"{failures}")
+    if launches != rounds or sum(counts.values()) != launches:
+        raise AssertionError(f"[sched] kernel 1 launches {launches} != "
+                             f"rounds {rounds}, or another kernel ran: "
+                             f"{counts}")
+    if not contended["rounds"] or not kept:
+        raise AssertionError("[sched] no round ran with a fairness weight "
+                             "below 1")
+    check = served_kernel_check(kept, "sched")
+    return dict(rounds=rounds, launches=launches, wall_s=wall,
+                hooks_s=hooks["s"], contended=contended["rounds"],
+                reorders=contended["reorders"], outcomes=outcomes,
+                check=check)
+
+
+def build_queries(num_cols: int, count: int, seed: int) -> list[Query]:
+    """bench_workload.py's cold queries."""
+    rng = np.random.default_rng(seed)
+    coeffs = tuple(1.0 / (k + 1) for k in range(num_cols))
+    out = []
+    for i in range(count):
+        kind = rng.choice(["sum", "count", "avg"], p=[0.5, 0.3, 0.2])
+        sel = float(rng.uniform(0.3, 1.0))
+        pred = Range(0, 0.0, 1e8 * sel) if sel < 0.999 else TRUE
+        eps = float(rng.uniform(0.04, 0.10))
+        out.append(Query(agg=str(kind), expr=Linear(coeffs), pred=pred,
+                         epsilon=eps, name=f"q{i}-{kind}"))
+    return out
+
+
+def build_hot_cold_mix(num_cols: int, n_hot: int, repeats: int,
+                       n_cold: int, seed: int) -> list[Query]:
+    """bench_workload.py's hot/cold mix: ``n_hot`` SUM patterns repeated
+    ``repeats`` times (fresh Query objects), round-robin interleaved with
+    ``n_cold`` cold queries."""
+    coeffs = tuple(1.0 / (k + 1) for k in range(num_cols))
+    rounds: list[list[Query]] = [[] for _ in range(repeats)]
+    for h in range(n_hot):
+        sel = 0.4 + 0.5 * (h / max(n_hot - 1, 1))
+        for r in range(repeats):
+            rounds[r].append(Query(
+                agg="sum", expr=Linear(coeffs),
+                pred=Range(0, 0.0, 1e8 * sel), epsilon=0.08,
+                name=f"hot{h}-r{r}"))
+    cold = build_queries(num_cols, n_cold, seed=seed + 1)
+    for i, q in enumerate(cold):
+        rounds[i % repeats].append(q)
+    return [q for rnd in rounds for q in rnd]
+
+
+def phase_rollup(store, values, packed) -> dict:
+    """The hot/cold mix (bench_workload.py's rollup lane) on the packed
+    deployment's table with max_slots=8 and RollupConfig(promote_hits=2):
+    at least one tier-1 answer, every answer within 3·ε of exact, kernel 1
+    launched once per round."""
+    queries = build_hot_cold_mix(NUM_COLS, **ROLLUP_MIX)
+    arrivals = [at for _, at in poisson_workload(
+        queries, ROLLUP_RATE, seed=ROLLUP_ARRIVAL_SEED)]
+    exact = exact_answers(values, queries)
+    with resident(store, packed):
+        server = OLAWorkloadServer(store, EngineConfig(**ENGINE),
+                                   options=ServerOptions(
+                                       rollup=RollupConfig(promote_hits=2),
+                                       **ROLLUP_OPTIONS), device="cuda")
+    try:
+        for q, at in zip(queries, arrivals):
+            server.submit(q, arrival_t=at)
+        intake = hook_timer(server, ("_admit_ready",))
+        reset_launches()
+        t0 = time.perf_counter()
+        results = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        server.close()
+    rounds = server.rounds
+    if server.truncated or len(results) != len(queries):
+        raise AssertionError("[rollup] run truncated or a query never "
+                             "completed")
+    failures, tier1, worst = [], 0, 0.0
+    for r, q in zip(results, queries):
+        ex = exact[q.name]
+        dev = abs(r.estimate - ex) / abs(ex)
+        worst = max(worst, dev / q.epsilon)
+        tier1 += r.sched_outcome == "tier1"
+        if not (np.isfinite(r.estimate) and dev <= 3 * q.epsilon):
+            failures.append(r.name)
+    tier = server.rollup.counters()
+    launches = counts["slot_extract"]
+    log(f"[rollup] {len(queries)} queries: {tier1} answered tier-1, rounds "
+        f"{rounds}, tuples_scanned {server.tuples_scanned}, tier counters "
+        f"{tier}, worst |estimate - exact| {worst:.3f}·eps, kernel 1 "
+        f"launches {launches}; wall {wall:.3f} s, mean server round "
+        f"{wall / max(rounds, 1) * 1e3:.3f} ms, intake (tier-1 answers and "
+        f"admission) {intake['s'] / max(rounds, 1) * 1e3:.4f} ms host per "
+        f"round")
+    if failures:
+        raise AssertionError(f"[rollup] answers outside 3·eps: {failures}")
+    if tier1 < 1:
+        raise AssertionError("[rollup] no query was answered tier-1")
+    if launches != rounds or sum(counts.values()) != launches:
+        raise AssertionError(f"[rollup] kernel 1 launches {launches} != "
+                             f"rounds {rounds}, or another kernel ran: "
+                             f"{counts}")
+    return dict(rounds=rounds, launches=launches, wall_s=wall, tier1=tier1,
+                counters=tier, scanned=server.tuples_scanned)
+
+
 # ------------------------------------------------------- grouped parity ----
 GROUP_INT_FIELDS = ("cur", "head", "offset", "scan_m", "closed")
 
@@ -1505,12 +2276,15 @@ def timed_calls(name: str, fn, iters: int, match: tuple) -> dict:
     wall per call with the wrapper's host work (CUDA events).  A trace with
     no device time for the kernel, or a count of device activities that is
     not a whole multiple of the calls, lost events (seen: 199 activities in
-    200 calls of a one-kernel call, and a trace of extract_parse with none):
-    the calls are traced again, up to three times."""
-    for _ in range(3):
+    200 calls of a one-kernel call, and a trace of extract_parse with
+    none): the calls are traced again, up to three times, and every lost
+    trace is logged."""
+    for attempt in range(3):
         ms, per_call = device_ms(fn, iters, match)
         if per_call is not None and per_call == round(per_call):
             break
+        log(f"[times] {name}: trace {attempt + 1} lost events "
+            f"({per_call} device activities per call); tracing again")
     one_launch(name, per_call)
     return dict(device_ms=ms, kernels_per_call=per_call,
                 call_ms=time_cuda(fn, iters))
@@ -1951,15 +2725,27 @@ def main(argv=None) -> int:
     launches = srv["launches"]
     phase_parity()
     phase_stream_parity()
+    # the kernel times hold each kernel to a whole count of device kernels
+    # per call, which the profiler keeps exact only early in a process:
+    # later in a long one, its traces lose ever more kernel launches
+    # (TRACE_LOSS), so they run before the serving-plane phases
     times = phase_times(srv["packed"], srv["sizes"], srv["rungs"],
                         srv["wall_s"])
     stimes = phase_stream_times(srv["packed"], srv["sizes"])
     gtimes = phase_grouped_times(gpacked, gsizes, srv["packed"],
                                  srv["sizes"], rows)
+    ptf = phase_ptf()
+    phase_sched_parity()
+    sched = phase_sched(store, values, srv["packed"])
+    rollup = phase_rollup(store, values, srv["packed"])
     rows_run = {k: v for k, v in rows.items() if k not in ("plan", "sizes_t")}
     del rows
     packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s")}
     del srv
+    # the serving-plane phases' servers sit in reference cycles (metrics
+    # gauges close over them) holding the packed store: collect them before
+    # the stream deployment measures its peak
+    gc.collect()
     torch.cuda.empty_cache()
     dep = phase_stream_deployment(store, values, packed_run)
     phase_profile(store, values, PROFILE_ROUNDS)
@@ -1971,6 +2757,16 @@ def main(argv=None) -> int:
         profile_rounds(server, PROFILE_ROUNDS, "grouped")
 
     report_times(card, times, stimes, gtimes, dep, gdep)
+    log(f"[times] {card}: serving plane: [ptf] ASCII chain {ptf['rounds']} "
+        f"rounds, {ptf['wall_s'] / max(ptf['rounds'], 1) * 1e3:.3f} ms per "
+        f"round (engine build and store packing per query included); "
+        f"[sched] {sched['rounds']} rounds, "
+        f"{sched['wall_s'] / sched['rounds'] * 1e3:.3f} ms per round, "
+        f"scheduler hooks {sched['hooks_s'] / sched['rounds'] * 1e3:.4f} ms "
+        f"host per round, kernel 1 {us(sched['check']['device_ms'])} us a "
+        f"launch on a contended round; [rollup] {rollup['rounds']} rounds, "
+        f"{rollup['wall_s'] / max(rollup['rounds'], 1) * 1e3:.3f} ms per "
+        f"round, {rollup['tier1']} tier-1 answers")
     log("[done]")
 
     def timed(name, b):
@@ -1985,6 +2781,9 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/slot_extract.cu",
         "replaces": "src/repro/kernels/slot_extract.py:101",
         "launches": launches,
+        "launches_by_path": {"packed": launches, "sched": sched["launches"],
+                             "rollup": rollup["launches"],
+                             "ptf": ptf["launches"]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),
         "max_rel_err_sums": max(r["max_rel_err_sums"] for r in checks),

@@ -4,7 +4,10 @@ of ``repro.core.controller``).
 The controller owns the modeled wall clock (Eq. 4: READ and EXTRACT overlap,
 so a round costs ``max(t_io, t_cpu)``), the δ-interval estimate reports, the
 HAVING-sequence early-outs, and the synopsis life-cycle across a query
-sequence (build → reuse → rebuild).  It drives the frozen query plane.
+sequence (build → reuse → rebuild).  It drives the frozen query plane,
+one query batch at a time (:meth:`EstimationController.run_query`) or as
+the paper's verification chain of HAVING queries
+(:meth:`EstimationController.run_verification`).
 """
 
 from __future__ import annotations
@@ -193,6 +196,40 @@ class EstimationController:
             tuples_ratio=float(np.sum(seed["m"])
                                / max(self.store.num_tuples, 1)),
             chunks_ratio=0.0, from_synopsis=True)
+
+
+    # -------------------------------------------------- verification chain --
+    def run_verification(self, queries: Sequence[Query],
+                         max_rounds: int = 200_000) -> list[QueryResult]:
+        """The PTF workflow (Section 1): HAVING queries run in sequence, and
+        a query runs only if every previous one passed.  The chain stops
+        after the first rejected query; a query whose verdict is still
+        undecided at its stop passes when its point estimate satisfies the
+        HAVING clause (the estimate is exact once the scan was exhausted).
+        Each query reuses (and refreshes) the synopsis."""
+        queries = list(queries)
+        for q in queries:
+            if q.having is None:
+                raise ValueError(f"verification query {q.name!r} has no "
+                                 "HAVING clause")
+        results = []
+        for q in queries:
+            res = self.run_query([q], max_rounds=max_rounds)
+            results.append(res)
+            verdict = int(res.decisions[0])
+            passed = verdict == 1 or (verdict == -1
+                                      and _having_exact_pass(q, res))
+            if not passed:
+                break   # batch rejected: the rest never runs
+        return results
+
+
+def _having_exact_pass(q: Query, res: QueryResult) -> bool:
+    """Judge an undecided HAVING verdict on the point estimate (exact when
+    the engine exhausted the data)."""
+    v = float(res.final_estimate[0])
+    t = q.having.threshold
+    return {"<": v < t, "<=": v <= t, ">": v > t, ">=": v >= t}[q.having.op]
 
 
 def _answer_from_stats(queries, stats):

@@ -209,3 +209,44 @@ def having_decision(lo, hi, op: str, threshold) -> torch.Tensor:
     if op not in HAVING_OP_CODES:
         raise ValueError(f"unsupported HAVING op: {op}")
     return having_decision_coded(lo, hi, HAVING_OP_CODES[op], threshold)
+
+
+# ---------------------------------------------------------------------------
+# Design-time (true) variance, Eq. (2), and the inverse-CLT planning helper
+# ---------------------------------------------------------------------------
+
+def variance_true(chunk_sums, within_ss, chunk_sizes, n: int,
+                  m) -> torch.Tensor:
+    """Eq. (2) for a fixed design (n chunks, m_j tuples from chunk j), in
+    the dtype of ``chunk_sums``.
+
+    ``chunk_sums`` are the true y_j, ``within_ss[j] = Σ_{i∈C_j}(x_i −
+    y_j/M_j)²``."""
+    chunk_sums = torch.as_tensor(chunk_sums)
+    big_n = _f(chunk_sums.shape[-1], chunk_sums)
+    n = _f(n, chunk_sums)
+    big_m = _f(chunk_sizes, chunk_sums)
+    m = torch.clamp(_f(m, chunk_sums), min=1.0)
+    ybar = torch.mean(chunk_sums, dim=-1, keepdim=True)
+    between = big_n / (big_n - 1.0) * (big_n - n) / n * torch.sum(
+        (chunk_sums - ybar) ** 2, dim=-1)
+    fpc = big_m / torch.clamp(big_m - 1.0, min=1.0) * (big_m - m) / m
+    within = big_n / n * torch.sum(fpc * _f(within_ss, chunk_sums), dim=-1)
+    return between + within
+
+
+def sample_size_for_accuracy(estimate, variance, m_used, epsilon,
+                             confidence: float = 0.95) -> torch.Tensor:
+    """Rough inverse-CLT planning helper: how many more tuples (at the
+    current per-tuple variance rate) until ``error_ratio <= epsilon``, in
+    the dtype of ``estimate``."""
+    estimate = torch.as_tensor(estimate)
+    z = z_score(confidence, estimate.dtype).to(estimate.device)
+    target_half = torch.abs(estimate) * epsilon / 2.0
+    target_var = (target_half / z) ** 2
+    variance = _f(variance, estimate)
+    ratio = torch.where(target_var > 0,
+                        variance / torch.clamp(target_var, min=1e-30),
+                        torch.full_like(target_var, float("inf")))
+    return torch.ceil(torch.clamp(ratio - 1.0, min=0.0)
+                      * torch.clamp(_f(m_used, estimate), min=1.0))

@@ -1,8 +1,10 @@
 """Synthetic dataset generators (counterpart of ``repro.data.generator``).
 
 :func:`make_synthetic_zipf` is the paper's §7.1 "synthetic" dataset: 16
-columns, column k Zipf with parameter ``0.25·k``; :func:`make_wiki_like`
-is the wiki-traffic table the GROUP BY workloads group by language;
+columns, column k Zipf with parameter ``0.25·k``; :func:`make_ptf_like`
+is the PTF-shaped transient catalog of the verification workflow;
+:func:`make_wiki_like` is the wiki-traffic table the GROUP BY workloads
+group by language;
 :func:`store_dataset` encodes values into a
 :class:`~repro_torch.data.chunkstore.ChunkStore`.  All draw from numpy ``Generator``s exactly as the reference does, so the
 same seed gives the same table in either package.
@@ -35,6 +37,50 @@ def make_synthetic_zipf(num_tuples: int = 131_072, num_cols: int = 16,
     rng = np.random.default_rng(seed)
     cols = [bounded_zipf(rng, 0.25 * k, num_tuples) for k in range(num_cols)]
     return np.stack(cols, axis=1)
+
+
+def make_ptf_like(num_tuples: int = 131_072, num_chunks_hint: int = 128,
+                  seed: int = 0) -> np.ndarray:
+    """PTF-shaped data: time-sorted, position-clumped transient detections.
+
+    Columns: [0] ra, [1] dec, [2] time, [3] mag, [4] mag_err, [5] flux,
+    [6] field_id, [7] ccd_id.  Tuples are sorted by time; each "night"
+    produces a handful of clumps near the telescope's pointing, emitted
+    clump by clump in contiguous runs of one to two and a half chunks, so a
+    chunk is (mostly) one clump: internally homogeneous, very different
+    from its neighbours (the paper's Figure 8 regime for the PTF catalog).
+    """
+    rng = np.random.default_rng(seed)
+    chunk_tuples = max(num_tuples // num_chunks_hint, 1)
+    rows = []
+    t0 = 0.0
+    made = 0
+    night = 0
+    while made < num_tuples:
+        n_clumps = int(rng.integers(2, 6))
+        centers_ra = rng.normal(180.0 + 40.0 * np.sin(night / 6.0), 15.0,
+                                n_clumps) % 360
+        centers_dec = rng.normal(33.0, 8.0, n_clumps)
+        base_mag = rng.uniform(14, 21, n_clumps)
+        for c in range(n_clumps):
+            if made >= num_tuples:
+                break
+            n = min(int(chunk_tuples * rng.uniform(1.0, 2.5)),
+                    num_tuples - made)
+            ra = (centers_ra[c] + rng.normal(0, 0.4, n)) % 360
+            dec = np.clip(centers_dec[c] + rng.normal(0, 0.4, n), -90, 90)
+            time = t0 + np.sort(rng.random(n)) * 0.4
+            mag = np.clip(base_mag[c] + rng.normal(0, 0.3, n), 10, 25)
+            mag_err = np.abs(rng.normal(0.02, 0.01, n)) + 1e-3
+            flux = 10 ** (-0.4 * (mag - 25.0))
+            field_id = np.full(n, float(night % 97))
+            ccd_id = rng.integers(0, 12, n).astype(np.float64)
+            rows.append(np.stack([ra, dec, time, mag, mag_err, flux,
+                                  field_id, ccd_id], 1))
+            made += n
+            t0 += 0.4
+        night += 1
+    return np.concatenate(rows, axis=0)[:num_tuples]
 
 
 def store_dataset(values: np.ndarray, num_chunks: int, fmt: str = "ascii",

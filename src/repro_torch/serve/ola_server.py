@@ -22,20 +22,35 @@ shared scan of the raw table:
   hitters are promoted into cells, and the answer arrives as
   ``WorkloadResult.groups``.
 
-This package serves the unscheduled path on one device, with packed or
-streaming residency (``EngineConfig.residency``; the decoded-chunk cache
-with ``decoded_cache_bytes``).  A chunk whose reads fail for good is
+* **SLO scheduling** — with ``ServerOptions(scheduler=...)`` queries carry
+  a :class:`~repro_torch.sched.slo.QuerySLO`; ready queries are admitted,
+  queued, shed or given a preempted slot in priority order, each round's
+  evaluation budget is divided by weighted max-min fairness, the
+  schedule's unclaimed tail is claimed by variance, and deadlines are
+  enforced (:mod:`repro_torch.sched`);
+* **rollup answers** — with ``ServerOptions(rollup=...)`` hot query patterns
+  are promoted to cells maintained from the scan's per-chunk statistics,
+  and repeats are answered from them with no slot and no scan round
+  (:mod:`repro_torch.serve.rollup`).
+
+The server runs on one device, with packed or streaming residency
+(``EngineConfig.residency``; the decoded-chunk cache with
+``decoded_cache_bytes``).  A chunk whose reads fail for good is
 quarantined: the answers of every query live at or after that moment
-describe the surviving population and are flagged ``degraded``.  The SLO
-scheduler, the rollup tier (with its per-group cell mining), multi-device
-meshes and injected engines raise ``NotImplementedError`` until their slices
-land.
+describe the surviving population and are flagged ``degraded``.  The
+scheduler's decisions read the modeled clock (Eq. (4) time, never wall
+time) and price their previews on the host.  Multi-device meshes and
+injected engines raise ``NotImplementedError`` until their slice lands.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
+import os
 import time
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -48,9 +63,13 @@ from repro_torch.core.engine import (
     EngineConfig,
     SlotOLAEngine,
     quarantine_chunks,
+    slot_group_rows,
+    slot_stats_fold,
+    slot_stats_snapshot,
     slot_stats_write,
     zero_group_cells,
 )
+from repro_torch.core.estimators import BiLevelStats
 from repro_torch.core.groupby import GroupSketch, promote_values
 from repro_torch.core.queries import (
     PLAN_CODES,
@@ -58,6 +77,7 @@ from repro_torch.core.queries import (
     Query,
     empty_slot_table,
     encode_slot,
+    group_fanout,
     slot_table_clear,
     slot_table_set,
     slot_table_set_groups,
@@ -67,7 +87,22 @@ from repro_torch.device import resolve_device
 from repro_torch.obs.explain import ExplainRecord, RoundSample
 from repro_torch.obs.metrics import LATENCY_BUCKETS_S, MetricsRegistry
 from repro_torch.obs.trace import NULL_TRACER
-from repro_torch.sched.admission import eq4_cost_terms, scan_tuples_per_s
+from repro_torch.sched.admission import (
+    SHED,
+    TIER1,
+    ServerLoad,
+    eq4_cost_terms,
+    scan_tuples_per_s,
+)
+from repro_torch.sched.preempt import select_victim
+from repro_torch.sched.scheduler import SchedulerConfig, WorkloadScheduler
+from repro_torch.sched.slo import NO_SLO, QuerySLO
+from repro_torch.serve.rollup import RollupConfig, RollupTier, pattern_key
+
+#: the calibration file this package's slot-kernel benchmark writes at the
+#: repo root; until that benchmark has run, the modeled constants price
+#: the scan
+RATES_FILE = "BENCH_torch_slot_kernel.json"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +119,66 @@ class MeasuredRates:
     source: str = "measured"
     # extraction cost of the calibration store (0 = unknown, no rescaling)
     cost_per_tuple: float = 0.0
+    # linear fit of the calibration's slot sweep, round_us(S) = base +
+    # slot_us·S: the scan-side round cost and the marginal cost of one
+    # fully counted slot (the scheduler's measured slot capacity; 0 = no
+    # fit)
+    round_base_us: float = 0.0
+    round_slot_us: float = 0.0
+
+
+def default_rates_path() -> str:
+    """Where :func:`load_measured_rates` looks by default: ``$OLA_RATES_PATH``
+    when set, else this package's calibration file at the repo root
+    (:data:`RATES_FILE`), anchored to the source tree and not the working
+    directory; outside a source checkout, the file in the working
+    directory."""
+    env = os.environ.get("OLA_RATES_PATH")
+    if env:
+        return env
+    repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    if os.path.isdir(os.path.join(repo_root, "benchmarks")):
+        return os.path.join(repo_root, RATES_FILE)
+    return RATES_FILE
+
+
+def load_measured_rates(path: Optional[str] = None,
+                        ) -> Optional[MeasuredRates]:
+    """The ``calibration`` block of a slot-kernel benchmark result file as
+    :class:`MeasuredRates`; ``path=None`` resolves through
+    :func:`default_rates_path`.  ``None`` (the caller keeps the modeled
+    constants) when the file is missing or holds no usable calibration:
+    rates must be finite and positive, and a NaN or non-positive round-cost
+    fit reads as no fit."""
+    if path is None:
+        path = default_rates_path()
+    try:
+        with open(path) as f:
+            data = json.load(f)
+        cal = data["calibration"]
+        cost = float(cal.get("cost_per_tuple", 0.0))
+
+        def _opt(key):
+            v = float(cal.get(key, 0.0))
+            return v if math.isfinite(v) and v > 0 else 0.0
+
+        rates = MeasuredRates(
+            io_bytes_per_sec=float(cal["io_bytes_per_sec"]),
+            cpu_tuples_per_sec=float(cal["cpu_tuples_per_sec"]),
+            workers=int(cal.get("workers", data.get("workers", 1))),
+            source=f"{path}:{cal.get('backend', '?')}",
+            cost_per_tuple=cost if math.isfinite(cost) and cost > 0 else 0.0,
+            round_base_us=_opt("round_base_us"),
+            round_slot_us=_opt("round_slot_us"))
+        # json.load accepts NaN, which compares False to everything
+        if not all(math.isfinite(v) and v > 0 for v in
+                   (rates.io_bytes_per_sec, rates.cpu_tuples_per_sec,
+                    rates.workers)):
+            return None
+        return rates
+    except (OSError, KeyError, TypeError, ValueError):
+        return None
 
 
 def select_plan(store, config: EngineConfig, query: Query,
@@ -112,14 +207,21 @@ def select_plan(store, config: EngineConfig, query: Query,
 class ServerOptions:
     """Construction options for :class:`OLAWorkloadServer`.
 
-    ``scheduler``, ``rollup``, ``mesh`` and ``engine`` belong to later
-    slices of this package and raise ``NotImplementedError`` when set."""
+    ``scheduler`` takes a :class:`~repro_torch.sched.WorkloadScheduler` or a
+    :class:`~repro_torch.sched.SchedulerConfig`; ``rollup`` a
+    :class:`~repro_torch.serve.rollup.RollupConfig` or a built
+    :class:`~repro_torch.serve.rollup.RollupTier`.  ``measured_rates`` (or
+    a ``rates_path`` calibration file, :func:`load_measured_rates`) price
+    the scan on measured rates instead of the modeled constants.  ``mesh``
+    and ``engine`` belong to a later slice and raise
+    ``NotImplementedError`` when set."""
 
     max_slots: int = 8
     synopsis_budget_tuples: int = 4096
     confidence: float = 0.95
     schedule: Optional[np.ndarray] = None
     measured_rates: Optional[MeasuredRates] = None
+    rates_path: Optional[str] = None
     tracer: object = None
     metrics: Optional[MetricsRegistry] = None
     scheduler: object = None
@@ -133,6 +235,29 @@ class ServerOptions:
     group_warmup_tuples: int = 1024
 
 
+_legacy_kwargs_warned = False
+
+
+def _options_from_legacy(kwargs: dict) -> ServerOptions:
+    """Map the constructor's keyword surface onto :class:`ServerOptions`,
+    warning once per process; unknown names raise ``TypeError``."""
+    global _legacy_kwargs_warned
+    names = {f.name for f in dataclasses.fields(ServerOptions)}
+    unknown = sorted(set(kwargs) - names)
+    if unknown:
+        raise TypeError(
+            f"OLAWorkloadServer got unexpected keyword argument(s) {unknown}; "
+            f"valid ServerOptions fields: {sorted(names)}")
+    if not _legacy_kwargs_warned:
+        warnings.warn(
+            "passing OLAWorkloadServer construction keywords directly is "
+            "deprecated; use OLAWorkloadServer(store, config, "
+            "options=ServerOptions(...))",
+            DeprecationWarning, stacklevel=3)
+        _legacy_kwargs_warned = True
+    return ServerOptions(**kwargs)
+
+
 @dataclasses.dataclass
 class WorkloadQuery:
     """One submitted query: the aggregate plus its workload metadata."""
@@ -142,7 +267,12 @@ class WorkloadQuery:
     arrival_t: float = 0.0          # modeled seconds on the server clock
     plan: Optional[str] = None      # None -> cost-model selector
     row: Optional[dict] = None      # slot row encoded (and validated) at submit
+    slo: Optional[QuerySLO] = None  # service-level objective (scheduler)
     queued: bool = False            # waited >= one admission pass for a slot
+    preempted: bool = False         # evicted mid-residence at least once
+    saved_stats: Optional[dict] = None  # eviction snapshot: re-admission seed
+    key: Optional[tuple] = None     # rollup pattern key (None: not cacheable,
+                                    # or the server has no rollup tier)
     explain: Optional[ExplainRecord] = None
 
 
@@ -165,8 +295,14 @@ class WorkloadResult:
     from_synopsis: bool = False     # answered at admission, zero scan rounds
     unserved: bool = False          # scan exhausted before the slot saw any
                                     # tuple (no synopsis seed): estimate NaN
-    sched_outcome: str = "admitted"  # "admitted" or "queued" (waited for one)
+    # "admitted" (straight into a slot), "queued" (waited for one),
+    # "preempted" (evicted mid-residence, re-queued and completed), "shed"
+    # (never held a slot: a best-effort synopsis answer, or unserved) or
+    # "tier1" (answered from the rollup cache, plan="rollup")
+    sched_outcome: str = "admitted"
     queue_wait: float = 0.0         # t_admit - t_submit (modeled s)
+    slo_met: Optional[bool] = None  # None when the query carried no SLO
+    priority: str = "normal"        # the SLO's priority class
     # degraded-answer semantics: the estimate speaks for the surviving
     # population because chunks were quarantined (lost or irrecoverably
     # corrupt) before the query completed; ``chunks_quarantined`` is the
@@ -205,9 +341,19 @@ class OLAWorkloadServer:
     """
 
     def __init__(self, store, config: EngineConfig,
-                 options: Optional[ServerOptions] = None, device=None):
+                 options: Optional[ServerOptions] = None, device=None,
+                 **legacy_kwargs):
+        """``options`` collects every construction knob; the former keyword
+        surface (``max_slots=...`` and the other :class:`ServerOptions`
+        fields as keywords) still works but warns once per process."""
+        if legacy_kwargs:
+            if options is not None:
+                raise TypeError(
+                    "pass either options=ServerOptions(...) or the legacy "
+                    "keyword arguments, not both")
+            options = _options_from_legacy(legacy_kwargs)
         opts = options if options is not None else ServerOptions()
-        for name in ("scheduler", "rollup", "mesh", "engine"):
+        for name in ("mesh", "engine"):
             if getattr(opts, name) is not None:
                 raise NotImplementedError(
                     f"ServerOptions.{name} is not ported to repro_torch yet")
@@ -225,11 +371,15 @@ class OLAWorkloadServer:
                                     confidence=opts.confidence,
                                     device=self.device)
         self.rates = opts.measured_rates
+        if self.rates is None and opts.rates_path is not None:
+            self.rates = load_measured_rates(opts.rates_path)
         # the table's group capacity follows the engine's (0: ungrouped)
         self.max_groups = int(self.config.max_groups)
         self.table = empty_slot_table(max_slots, store.codec.num_cols,
                                       self.max_groups, device=self.device)
         self.state = self.engine.init_state()
+        # chunk sizes on the host: admission previews are priced there
+        self._sizes_host = self.state.stats.M.cpu()
         self.max_slots = max_slots
         # per-slot online group discovery (grouped occupants only): the
         # SpaceSaving sketch fed from each round's tallies, and the host's
@@ -255,7 +405,28 @@ class OLAWorkloadServer:
         self.idle_offset = 0.0
         self.truncated = False
         self._next_qid = 0
+        # host mirrors of the slot table's weight and eps columns (what the
+        # server last wrote), so the per-round hooks read no device state
         self._weights = np.ones(max_slots, np.float32)
+        self._slot_eps = np.ones(max_slots, np.float32)
+        scheduler, rollup = opts.scheduler, opts.rollup
+        if isinstance(scheduler, SchedulerConfig):
+            scheduler = WorkloadScheduler(scheduler)
+        self.scheduler: Optional[WorkloadScheduler] = scheduler
+        if self.scheduler is not None:
+            # slot_capacity="measured" follows the calibration's fit
+            self.scheduler.calibrate(self.rates)
+        if isinstance(rollup, RollupConfig):
+            rollup = RollupTier(store, rollup)
+        self.rollup: Optional[RollupTier] = rollup
+        if self.rollup is not None and self.rollup.store is not store:
+            raise ValueError("rollup tier was built over a different store")
+        self.shed_count = 0
+        self.preempt_count = 0
+        self._service_times: list[float] = []   # scan service per retirement
+        self._preview_cache: dict[int, tuple] = {}  # per intake pass, by qid
+        self._rollup_cache: dict[int, tuple] = {}   # per intake pass, by qid
+        self._last_err: Optional[np.ndarray] = None  # (S,) last round report
         # surviving-population bookkeeping: quarantining a chunk shrinks the
         # population every price and estimate describes; re-derived from
         # engine.quarantine_log after each round (see _note_quarantine)
@@ -277,7 +448,8 @@ class OLAWorkloadServer:
 
     def _bind_metrics(self) -> None:
         """Register the server's observable state as pull gauges (read at
-        export time, no hot-path writes)."""
+        export time, no hot-path writes), with the prefetcher's, the rollup
+        tier's and the scheduler's."""
         reg = self.metrics
         reg.gauge("server_rounds", help="engine rounds run",
                   fn=lambda: self.rounds)
@@ -290,6 +462,10 @@ class OLAWorkloadServer:
                   fn=lambda: len(self.queue))
         reg.gauge("server_slots_resident", help="occupied scan slots",
                   fn=lambda: sum(w is not None for w in self.slot_wq))
+        reg.gauge("server_shed_count", help="queries shed (best-effort)",
+                  fn=lambda: self.shed_count)
+        reg.gauge("server_preempt_count", help="slot evictions",
+                  fn=lambda: self.preempt_count)
         reg.gauge("server_chunks_quarantined",
                   help="chunks removed from the population",
                   fn=lambda: self._quarantine_count)
@@ -298,6 +474,10 @@ class OLAWorkloadServer:
                   fn=lambda: len(self.engine.quarantine_log))
         if self.engine.pipeline is not None:
             self.engine.pipeline.bind_metrics(reg)
+        if self.rollup is not None:
+            self.rollup.bind_metrics(reg)
+        if self.scheduler is not None:
+            self.scheduler.bind_metrics(reg)
         injected = getattr(self.store, "injected", None)
         if isinstance(injected, dict):
             for kind in sorted(injected):
@@ -368,8 +548,8 @@ class OLAWorkloadServer:
     def _note_quarantine(self, force: bool = False) -> None:
         """Absorb newly quarantined chunks into every population-priced
         structure: resident queries' explain records, the decoded cache,
-        the synopsis, and the scan rate and admission totals, re-priced
-        over the survivors.  A round with nothing new costs one
+        the synopsis, the rollup cells covering them, and the scan rate and
+        admission totals, re-priced over the survivors.  A round with nothing new costs one
         list-length check."""
         log = self.engine.quarantine_log
         if len(log) <= self._quarantine_seen and not force:
@@ -401,11 +581,16 @@ class OLAWorkloadServer:
             decoded_fraction=self._decoded_fraction())
         if self.synopsis is not None and new:
             self.synopsis.drop_chunks(new)
+        if self.rollup is not None and new:
+            self.rollup.invalidate_chunks(new)
 
     def _mask_quarantined_seed(self, seed: Optional[dict]) -> Optional[dict]:
         """Zero a seed row's quarantined columns: the synopsis re-absorbs
         the engine's extraction cache, which may still hold windows of a
-        chunk quarantined after it was read."""
+        chunk quarantined after it was read, and preemption snapshots may
+        predate the quarantine.  Every seed goes through here: admission,
+        the scheduled intake's previews and a promoted rollup cell's birth
+        seed."""
         if seed is None or self._quarantine_count == 0:
             return seed
         alive = ~self.state.quarantined.cpu().numpy()
@@ -424,11 +609,15 @@ class OLAWorkloadServer:
 
     # ------------------------------------------------------------ intake ----
     def submit(self, query: Query, arrival_t: Optional[float] = None,
-               plan: Optional[str] = None) -> int:
+               plan: Optional[str] = None,
+               slo: Optional[QuerySLO] = None) -> int:
         """Enqueue a query; returns its qid.  ``arrival_t`` defaults to the
-        current modeled time.  Raises at submit time when the query is
-        outside the slot-encodable linear+range form, the plan is unknown,
-        or the scan is fully extracted with no synopsis to answer from."""
+        current modeled time.  ``slo`` attaches a service-level objective
+        (deadline, CI half-width target, priority class); it takes effect
+        when the server has a scheduler.  Raises at submit time when the
+        query is outside the slot-encodable linear+range form, the plan is
+        unknown, or the scan is fully extracted with no synopsis to answer
+        from."""
         if plan is not None and plan not in PLAN_CODES:
             raise ValueError(
                 f"unknown plan {plan!r}; expected one of {sorted(PLAN_CODES)}")
@@ -450,9 +639,12 @@ class OLAWorkloadServer:
         qid = self._next_qid
         self._next_qid += 1
         at = self.t_model if arrival_t is None else float(arrival_t)
+        key = (pattern_key(query, self.store.codec.num_cols)
+               if self.rollup is not None else None)
         wq = WorkloadQuery(qid=qid, query=query, arrival_t=at, plan=plan,
-                           row=row, explain=ExplainRecord(
-                               qid=qid, name=query.name, t_submit=at))
+                           row=row, slo=slo, key=key,
+                           explain=ExplainRecord(qid=qid, name=query.name,
+                                                 t_submit=at))
         self.queue.append(wq)
         self.queue.sort(key=lambda wq: (wq.arrival_t, wq.qid))
         if self.tracer.enabled:
@@ -473,7 +665,19 @@ class OLAWorkloadServer:
             self.state, self.state.schedule.cpu().numpy(), variances)
 
     def _admit_ready(self) -> None:
+        if self.rollup is not None:
+            self.rollup.maintain(self.t_model)
+            self._rollup_cache = {}
+        if self.scheduler is not None:
+            self._admit_ready_scheduled()
+            return
         now = self.t_model
+        if self.rollup is not None:
+            # a Tier-1 answer needs no slot: every ready hit is answered
+            # now, even with the slot table full and behind other work
+            for wq in [w for w in self.queue if w.arrival_t <= now]:
+                if self._try_tier1(wq):
+                    self.queue.remove(wq)
         while self.queue and self.queue[0].arrival_t <= now:
             free = self._free_slots()   # recompute: seed-answered slots refree
             if not free:
@@ -501,6 +705,368 @@ class OLAWorkloadServer:
                               outcome=result.sched_outcome,
                               rounds=result.rounds_resident)
 
+    @staticmethod
+    def _wants_preview(wq: WorkloadQuery) -> bool:
+        slo = wq.slo or NO_SLO
+        return slo.has_deadline or np.isfinite(slo.target_halfwidth)
+
+    @staticmethod
+    def _outcome(wq: WorkloadQuery) -> str:
+        if wq.preempted:
+            return "preempted"
+        return "queued" if wq.queued else "admitted"
+
+    def _admit_ready_scheduled(self) -> None:
+        """Scheduler intake: ready queries in queue-policy order, each
+        answered Tier-1, admitted, left queued, shed or, with
+        ``config.preempt``, given a slot by evicting a strictly-lower-
+        priority resident when its deadline is feasible only that way."""
+        sched = self.scheduler
+        now = self.t_model
+        ready = [wq for wq in self.queue if wq.arrival_t <= now]
+        # one synopsis refresh per intake pass; the previews are cached for
+        # the pass (feasibility, shedding and _admit's effective ε)
+        self._preview_cache = {}
+        if self.synopsis is not None and any(map(self._wants_preview, ready)):
+            self._refresh_synopsis()
+        while True:
+            ready = [wq for wq in self.queue if wq.arrival_t <= now]
+            ready.sort(key=sched.queue_key)
+            ahead: list[WorkloadQuery] = []  # still queued, ahead of this one
+            restart = False
+            for wq in ready:
+                free = self._free_slots()  # recompute: seed-retired slots
+                if free and ahead:
+                    # a slot freed mid-pass behind queued work (a preempt-
+                    # admitted query retired at once from its seed): start
+                    # over so the highest-priority queued query claims it
+                    restart = True
+                    break
+                decision = self._decide_admission(wq, len(free), ahead)
+                if wq.explain is not None:
+                    wq.explain.admission_reason = decision.reason
+                    wq.explain.predicted_service_s = \
+                        decision.predicted_service_s
+                    wq.explain.predicted_finish_t = \
+                        decision.predicted_finish_t
+                if self.tracer.enabled:
+                    self.tracer.event("admission", qid=wq.qid,
+                                      action=decision.action)
+                if decision.action == TIER1 and self._try_tier1(wq):
+                    self.queue.remove(wq)   # no slot taken: no restart
+                    continue
+                if not free and self._try_preempt(wq, decision):
+                    # the victim was evicted so that the deadline fits if
+                    # the query runs now: the freed slot is the candidate's
+                    self.queue.remove(wq)
+                    self._admit(self._free_slots()[0], wq)
+                elif decision.action == SHED:
+                    self.queue.remove(wq)
+                    self._shed(wq)
+                elif free:
+                    self.queue.remove(wq)
+                    self._admit(free[0], wq)
+                else:
+                    wq.queued = True
+                    ahead.append(wq)
+            if not restart:
+                break
+            # a restarted pass sees free slots with nothing ahead, so its
+            # head query is admitted or shed: the queue shrinks every time
+
+    def _try_preempt(self, wq: WorkloadQuery, decision) -> bool:
+        """Evict a strictly-lower-priority resident for ``wq`` when its
+        deadline would die in the queue but fits if the query runs now.
+        True when a slot was freed (the victim is snapshotted and
+        re-queued)."""
+        slo = wq.slo or NO_SLO
+        if not (self.scheduler.config.preempt and slo.has_deadline):
+            return False
+        deadline_t = wq.arrival_t + slo.deadline_s
+        if decision.predicted_finish_t <= deadline_t:
+            return False                # feasible by waiting
+        now = self.t_model
+        if max(now, wq.arrival_t) + decision.predicted_service_s > deadline_t:
+            return False                # hopeless even with a slot now
+        stopped = self.state.stopped.cpu().numpy()
+        # grouped residents are never evicted: the snapshot holds only the
+        # scalar statistics row, so a re-admitted grouped query would lose
+        # its cells and its discovered values
+        evictable = [self.slot_wq[s] is not None and not stopped[s]
+                     and self.slot_wq[s].query.group_by is None
+                     for s in range(self.max_slots)]
+        victim = select_victim(
+            wq.slo, [w.slo if w is not None else None for w in self.slot_wq],
+            self.slot_admit_t, evictable)
+        if victim is None:
+            return False
+        self._evict(victim)
+        return True
+
+    def _evict(self, s: int) -> None:
+        """Preempt slot ``s``: its statistics row becomes the occupant's
+        re-admission seed, the slot is released, and the occupant is
+        re-queued flagged ``preempted`` (it completes later)."""
+        wq = self.slot_wq[s]
+        wq.saved_stats = slot_stats_snapshot(self.state, s)
+        wq.preempted = True
+        wq.queued = True
+        self.preempt_count += 1
+        if self.tracer.enabled:
+            self.tracer.event("preempt", qid=wq.qid, slot=s)
+        self._release(s)
+        self.queue.append(wq)
+        self.queue.sort(key=lambda w: (w.arrival_t, w.qid))
+
+    def _cached_preview(self, wq: WorkloadQuery) -> tuple:
+        out = self._preview_cache.get(wq.qid)
+        if out is None:
+            out = self._seed_answer(wq.query, seed=wq.saved_stats, key=wq.key)
+            self._preview_cache[wq.qid] = out
+        return out
+
+    def _rollup_answer(self, wq: WorkloadQuery) -> Optional[tuple]:
+        """Tier-1 answer preview from the query's promoted rollup cell,
+        ``(m, estimate, lo, hi, err, having_decision)``, or None when no
+        cell serves the pattern.  Cached per intake pass."""
+        if self.rollup is None or wq.key is None:
+            return None
+        cell = self.rollup.get(wq.key)
+        if cell is None or int(cell.m.sum()) == 0:
+            return None
+        out = self._rollup_cache.get(wq.qid)
+        if out is None:
+            m, est_v, lo, hi, err = self._seed_answer(
+                wq.query, seed=cell.seed_dict())
+            q = wq.query
+            decision = -1
+            if q.having is not None and m > 0:
+                decision = int(est.having_decision(lo, hi, q.having.op,
+                                                   q.having.threshold))
+            out = (m, est_v, lo, hi, err, decision)
+            self._rollup_cache[wq.qid] = out
+        return out
+
+    def _try_tier1(self, wq: WorkloadQuery) -> bool:
+        """Answer ``wq`` from the rollup cache iff the cached answer meets
+        its accuracy ask (the slot-effective ε, or a decided HAVING): no
+        slot, no scan round."""
+        if wq.query.group_by is not None:
+            # a cell holds base-predicate scalar statistics only: it cannot
+            # give the per-group cells a grouped answer promises
+            return False
+        ans = self._rollup_answer(wq)
+        if ans is None:
+            return False
+        m, est_v, lo, hi, err, decision = ans
+        if m == 0:
+            return False
+        eps_eff = wq.query.epsilon
+        if self.scheduler is not None:
+            eps_eff = self.scheduler.effective_epsilon(wq.query, wq.slo,
+                                                       est_v)
+        if err > eps_eff and decision == -1:
+            return False
+        now = self.t_model
+        self.rollup.get(wq.key).touch(now)
+        self.rollup.tier1_hits += 1
+        self.rollup.observe(wq.query, wq.key, now)  # hits keep patterns hot
+        latency = now - wq.arrival_t
+        slo_met = None
+        if wq.slo is not None:
+            slo_met = wq.slo.met(latency, (hi - lo) / 2.0)
+        if wq.explain is not None:
+            wq.explain.tier = "tier1"
+            wq.explain.tier_reason = (
+                "promoted rollup cell decided the HAVING verdict"
+                if err > eps_eff else
+                f"promoted rollup cell meets target (err {err:.3g} <= "
+                f"eps {eps_eff:.3g}); no slot, no scan rounds")
+        self._finish(wq, WorkloadResult(
+            qid=wq.qid, name=wq.query.name, estimate=est_v, lo=lo, hi=hi,
+            err=err, decision=decision, plan="rollup",
+            t_submit=wq.arrival_t, t_admit=now, t_done=now,
+            seeded_tuples=m, tuples_seen=m, rounds_resident=0,
+            sched_outcome="tier1", queue_wait=latency, slo_met=slo_met,
+            priority=(wq.slo or NO_SLO).priority,
+            degraded=self._quarantine_count > 0,
+            chunks_quarantined=self._quarantine_count))
+        return True
+
+    def _rollup_on_retire(self, wq: WorkloadQuery, s: Optional[int],
+                          valid: bool) -> None:
+        """Completion hook of the rollup miner: log the pattern (promoting
+        it once hot) and, when the query retired from a slot with real
+        statistics, fold that row into its cell.  A newly promoted cell is
+        birth-seeded from the synopsis, so the next repeat starts warm."""
+        if self.rollup is None or wq.key is None:
+            return
+        promoted = self.rollup.observe(wq.query, wq.key, self.t_model)
+        if promoted is not None and self.synopsis is not None:
+            seed = self._mask_quarantined_seed(
+                self.synopsis.seed_slot(wq.query))
+            if seed is not None:
+                promoted.fold(seed)
+        if s is not None and valid:
+            self.rollup.fold(wq.key, slot_stats_snapshot(self.state, s))
+
+    def _observed_mean_service_s(self) -> Optional[float]:
+        """Mean scan service over completed queries; None before the first
+        retirement."""
+        st = self._service_times
+        return (sum(st) / len(st)) if st else None
+
+    def _service_prior_s(self) -> float:
+        """Cold-start per-job service for wait pricing: the observed mean
+        service, else one full pass at the scan rate (never the
+        candidate's own seed-discounted prediction: the queue is other
+        queries' work)."""
+        mean = self._observed_mean_service_s()
+        if mean is not None:
+            return mean
+        return float(self._eff_tuples) / max(self._scan_rate, 1e-12)
+
+    def _wait_components(self, ahead: list) -> tuple:
+        """``(slot_drain_s, queue_ahead_service_s)``: the least remaining
+        service over the resident slots (their class quantile minus their
+        residence so far), and each queued job ahead at its own class's
+        quantile."""
+        model = self.scheduler.service_model
+        prior = self._service_prior_s()
+        now = self.t_model
+        drains = []
+        for s in range(self.max_slots):
+            w = self.slot_wq[s]
+            if w is None:
+                continue
+            pred = model.predict((w.slo or NO_SLO).priority, prior)
+            drains.append(max(pred - max(now - self.slot_admit_t[s], 0.0),
+                              0.0))
+        drain = min(drains) if drains else None
+        ahead_s = sum(model.predict((w.slo or NO_SLO).priority, prior)
+                      for w in ahead)
+        return drain, float(ahead_s)
+
+    def _decide_admission(self, wq: WorkloadQuery, n_free: int, ahead: list):
+        slo = wq.slo or NO_SLO
+        grouped = wq.query.group_by is not None
+        seed_m, seed_err, seed_est = 0, float("inf"), None
+        rollup_err = float("inf")
+        rollup = self._rollup_answer(wq)
+        if rollup is not None:
+            r_m, r_est, _, _, r_err, r_dec = rollup
+            # a decided HAVING is as good as err 0; the cell also seeds the
+            # feasibility price (the scan left to run)
+            rollup_err = 0.0 if r_dec != -1 else r_err
+            seed_m, seed_est, seed_err = r_m, r_est, r_err
+        if self._wants_preview(wq):
+            m, e, _, _, err = self._cached_preview(wq)
+            if m > seed_m:
+                seed_m, seed_est, seed_err = m, e, err
+        if grouped:
+            # a scalar answer can neither serve nor seed the group cells:
+            # never Tier-1, and a full-pass price (seed_est stays the ε
+            # translation's magnitude anchor)
+            rollup_err = float("inf")
+            seed_m, seed_err = 0, float("inf")
+        drain, ahead_s = self._wait_components(ahead)
+        load = ServerLoad(
+            now=self.t_model, free_slots=n_free, queue_ahead=len(ahead),
+            scan_rate=self._scan_rate,
+            total_tuples=int(self._eff_tuples),
+            mean_service_s=self._observed_mean_service_s(),
+            slot_drain_s=drain, queue_ahead_service_s=ahead_s)
+        # judge feasibility at the ε the slot will run at
+        eps_eff = self.scheduler.effective_epsilon(wq.query, wq.slo, seed_est)
+        return self.scheduler.admission.decide(
+            arrival_t=wq.arrival_t, slo=slo, epsilon=eps_eff,
+            load=load, seed_m=seed_m, seed_err=seed_err,
+            rollup_err=rollup_err,
+            group_count=(wq.query.group_by.effective_top_k if grouped else 0))
+
+    def _best_seed(self, query: Query, key: Optional[tuple]) -> Optional[dict]:
+        """The synopsis row for ``query``, or the promoted rollup cell of
+        ``key`` when it out-samples the synopsis (a cell that missed the
+        target alone still spares the slot its part of the scan)."""
+        seed = self.synopsis.seed_slot(query) if self.synopsis else None
+        cell = self.rollup.get(key) if self.rollup is not None else None
+        if cell is not None and (seed is None or int(cell.m.sum())
+                                 > int(np.asarray(seed["m"]).sum())):
+            seed = cell.seed_dict()
+        return seed
+
+    def _seed_answer(self, query: Query, seed: Optional[dict] = None,
+                     key: Optional[tuple] = None) -> tuple:
+        """Best scan-free answer available now, ``(m, estimate, lo, hi,
+        err)``; ``(0, nan, nan, nan, inf)`` when nothing can serve the
+        query.  ``seed`` overrides the lookups (a preempted query's
+        snapshot); otherwise the synopsis row and, when ``key`` names a
+        promoted cell, the cell compete by sample size (the caller has
+        refreshed the synopsis).  The seed is masked to the surviving
+        chunks and priced over the surviving population.
+
+        Computed on the host in float32, like the numpy policy that reads
+        it: admission decisions do not depend on the device."""
+        if seed is None:
+            seed = self._best_seed(query, key)
+        seed = self._mask_quarantined_seed(seed)
+        if seed is None or int(np.asarray(seed["m"]).sum()) == 0:
+            return 0, float("nan"), float("nan"), float("nan"), float("inf")
+
+        def row(k):
+            return torch.as_tensor(np.asarray(seed[k], np.float32))[None]
+
+        stats_row = BiLevelStats(
+            M=self._sizes_host,
+            m=torch.as_tensor(np.asarray(seed["m"], np.int32)),
+            ysum=row("ysum"), ysq=row("ysq"), psum=row("psum"),
+            n_total=self._eff_chunks, m_total=self._eff_tuples)
+        est_v, lo, hi, err = _answer_from_stats([query], stats_row)
+        return (int(np.asarray(seed["m"]).sum()), float(est_v[0]),
+                float(lo[0]), float(hi[0]), float(err[0]))
+
+    def _shed(self, wq: WorkloadQuery) -> None:
+        """Answer a shed query at once from the synopsis, flagged
+        best-effort, or flag it unserved when no seed exists.  A shed query
+        never holds a slot and costs no scan round."""
+        now = self.t_model
+        q = wq.query
+        m_seen, estimate, lo, hi, err = self._cached_preview(wq)
+        decision = -1
+        if m_seen == 0:
+            unserved, from_syn = True, False
+        else:
+            if q.having is not None:
+                decision = int(est.having_decision(lo, hi, q.having.op,
+                                                   q.having.threshold))
+            unserved, from_syn = False, True
+        latency = now - wq.arrival_t
+        slo_met = None
+        if wq.slo is not None:
+            # a shed answer arrives at once, so the deadline alone would
+            # always hit: it must also meet the accuracy ask (ε or a
+            # decided HAVING)
+            accurate = (not unserved) and (err <= q.epsilon or decision != -1)
+            slo_met = accurate and wq.slo.met(latency, (hi - lo) / 2.0)
+        if wq.explain is not None and not wq.explain.tier_reason:
+            wq.explain.tier_reason = (
+                "shed: no seed available, answer unserved" if unserved
+                else "shed: best-effort synopsis answer, no scan rounds")
+        self._finish(wq, WorkloadResult(
+            qid=wq.qid, name=q.name, estimate=estimate, lo=lo, hi=hi,
+            err=err, decision=decision, plan="shed",
+            t_submit=wq.arrival_t, t_admit=now, t_done=now,
+            seeded_tuples=m_seen, tuples_seen=m_seen, rounds_resident=0,
+            from_synopsis=from_syn, unserved=unserved, sched_outcome="shed",
+            queue_wait=latency, slo_met=slo_met,
+            priority=(wq.slo or NO_SLO).priority,
+            degraded=self._quarantine_count > 0,
+            chunks_quarantined=self._quarantine_count))
+        self.shed_count += 1
+        # a shed still shows demand for the pattern: mine it (no fold, the
+        # query never held a slot)
+        self._rollup_on_retire(wq, None, False)
+
     def _admit(self, s: int, wq: WorkloadQuery) -> None:
         df = self._decoded_fraction()
         plan = wq.plan or select_plan(self.store, self.config, wq.query,
@@ -509,15 +1075,33 @@ class OLAWorkloadServer:
                                     max_groups=self.max_groups)
         row["plan"] = np.int32(PLAN_CODES[plan])
         self._refresh_synopsis()
+        # a preempted query returning is seeded from its eviction snapshot
+        # (every tuple it already counted)
         seed = self._mask_quarantined_seed(
-            self.synopsis.seed_slot(wq.query) if self.synopsis else None)
+            wq.saved_stats if wq.saved_stats is not None
+            else self._best_seed(wq.query, wq.key))
+        if (self.scheduler is not None and wq.slo is not None
+                and np.isfinite(wq.slo.target_halfwidth)):
+            # absolute CI half-width target -> the slot's relative ε,
+            # anchored on the pass's cached preview
+            _, seed_est, *_ = self._cached_preview(wq)
+            row["eps"] = np.float32(self.scheduler.effective_epsilon(
+                wq.query, wq.slo, seed_est))
         stats, seeded = slot_stats_write(self.state.stats, s, seed,
                                          self.store.num_chunks)
         stopped = self.state.stopped.clone()
         stopped[s] = False
         self.state = self.state._replace(stats=stats, stopped=stopped)
+        if self._last_err is not None:
+            # the previous occupant's error is stale for the new one: the
+            # claim key reads it as "no estimate yet"
+            self._last_err[s] = np.inf
         self.table = slot_table_set(self.table, s, row)
+        # slot_table_set reset the row's weight: keep the mirror in step, or
+        # _apply_scheduling could skip the next write and leave the new
+        # occupant at full budget instead of its max-min share
         self._weights[s] = np.float32(row.get("weight", 1.0))
+        self._slot_eps[s] = np.float32(row["eps"])
         self.slot_wq[s] = wq
         self.slot_admit_t[s] = self.t_model
         self.slot_admit_round[s] = self.rounds
@@ -574,6 +1158,11 @@ class OLAWorkloadServer:
                                                q.having.threshold))
         if e > q.epsilon and decision == -1:
             return False
+        self._rollup_on_retire(wq, s, True)
+        slo_met = None
+        if wq.slo is not None:
+            slo_met = wq.slo.met(self.t_model - wq.arrival_t,
+                                 (float(hi[0]) - float(lo[0])) / 2.0)
         if wq.explain is not None and not wq.explain.tier_reason:
             wq.explain.tier_reason = ("seed met the target at admission "
                                       "(answered without scan rounds)")
@@ -585,8 +1174,9 @@ class OLAWorkloadServer:
             t_done=self.t_model, seeded_tuples=int(self.slot_seeded[s]),
             tuples_seen=int(st.m[s].sum()),
             rounds_resident=0, from_synopsis=True,
-            sched_outcome="queued" if wq.queued else "admitted",
-            queue_wait=self.slot_admit_t[s] - wq.arrival_t,
+            sched_outcome=self._outcome(wq),
+            queue_wait=self.slot_admit_t[s] - wq.arrival_t, slo_met=slo_met,
+            priority=(wq.slo or NO_SLO).priority,
             **self._fault_fields(s)))
         self._release(s)
         return True
@@ -628,6 +1218,29 @@ class OLAWorkloadServer:
                 hi=float(g_hi[i]), err=float(g_err[i]), n=int(g_n[i]),
                 decision=decision, is_other=is_other))
         return out
+
+    def _rollup_group_cells(self, wq: WorkloadQuery, s: int) -> None:
+        """Per-group rollup mining at retirement: each tracked cell is the
+        completed run of its :func:`group_fanout` scalar pattern, so it
+        feeds the miner under that pattern's key and, once promoted, folds
+        the cell's per-chunk row into it."""
+        gb = wq.query.group_by
+        if self.rollup is None or gb is None:
+            return
+        tracked = self._slot_groups[s] or []
+        if not tracked:
+            return
+        rows = slot_group_rows(self.state, s)
+        base = dataclasses.replace(wq.query, group_by=None)
+        for i, v in enumerate(tracked):
+            fq = group_fanout(base, gb.col, [v])[0]
+            key = pattern_key(fq, self.store.codec.num_cols)
+            if key is None:
+                continue
+            self.rollup.observe(fq, key, self.t_model)
+            self.rollup.fold(key, dict(
+                m=rows["gm"][i], ysum=rows["gys"][i],
+                ysq=rows["gyq"][i], psum=rows["gps"][i]))
 
     def _fold_group_discovery(self, rep) -> None:
         """After a round, for every live grouped slot: fold the round's
@@ -714,6 +1327,12 @@ class OLAWorkloadServer:
                 continue
             # a slot that never received a tuple has no answer: unserved
             bad = s in unserved or int(m_rows[s].sum()) == 0
+            lo_f, hi_f = float(lo_a[s]), float(hi_a[s])
+            slo_met = None
+            if wq.slo is not None:
+                slo_met = wq.slo.met(self.t_model - wq.arrival_t,
+                                     float("nan") if bad
+                                     else (hi_f - lo_f) / 2.0)
             if wq.explain is not None and not wq.explain.tier_reason:
                 wq.explain.tier_reason = (
                     "scan exhausted before the slot saw any tuple" if bad
@@ -721,21 +1340,85 @@ class OLAWorkloadServer:
             self._finish(wq, WorkloadResult(
                 qid=wq.qid, name=wq.query.name,
                 estimate=float("nan") if bad else float(est_a[s]),
-                lo=float(lo_a[s]), hi=float(hi_a[s]), err=float(err_a[s]),
+                lo=lo_f, hi=hi_f, err=float(err_a[s]),
                 decision=int(dec_a[s]), plan=self.slot_plan[s],
                 t_submit=wq.arrival_t, t_admit=self.slot_admit_t[s],
                 t_done=self.t_model, seeded_tuples=int(self.slot_seeded[s]),
                 tuples_seen=int(m_rows[s].sum()),
                 rounds_resident=int(self.rounds - self.slot_admit_round[s]),
                 unserved=bad,
-                sched_outcome="queued" if wq.queued else "admitted",
+                sched_outcome=self._outcome(wq),
                 queue_wait=float(self.slot_admit_t[s] - wq.arrival_t),
+                slo_met=slo_met, priority=(wq.slo or NO_SLO).priority,
                 groups=None if bad else self._group_results(rep, s, wq),
                 **self._fault_fields(s)))
+            service = self.t_model - self.slot_admit_t[s]
+            self._service_times.append(service)
+            if self.scheduler is not None:
+                # the per-class service-time sketch (quantile admission)
+                self.scheduler.observe_service(wq.slo, service)
+            self._rollup_on_retire(wq, s, not bad)
+            if not bad:
+                self._rollup_group_cells(wq, s)
             self._release(s)
 
     def _any_active(self) -> bool:
         return any(wq is not None for wq in self.slot_wq)
+
+    def _apply_scheduling(self) -> None:
+        """Pre-round scheduler hooks: this round's fairness weights into
+        the slot table and, under ``claim_policy="variance"``, the
+        schedule's unclaimed tail reordered.  Both run before
+        ``round_data``, so the streaming claim prediction and read-ahead
+        follow the new order (the prefetcher keys its slabs by chunk id,
+        so a slab read ahead under the old order still feeds its own
+        chunk)."""
+        sched = self.scheduler
+        active = np.asarray([wq is not None for wq in self.slot_wq])
+        w = sched.round_weights(
+            [wq.slo if wq is not None else None for wq in self.slot_wq],
+            active)
+        if not np.array_equal(w, self._weights):
+            self.table = self.table._replace(
+                weight=torch.as_tensor(w, device=self.device))
+            self._weights = w
+        order = sched.claim_order(self.state, self.store.chunk_sizes,
+                                  active=active, slot_need=self._slot_need())
+        if order is not None:
+            self.state = self.state._replace(
+                schedule=torch.as_tensor(order, device=self.device))
+
+    def _slot_need(self) -> Optional[np.ndarray]:
+        """Per-slot ε-distance weights of the claim key, ``max(err/ε − 1,
+        0)`` from the last round's report (1.0 for a slot with no estimate
+        yet); ``None`` before the first round."""
+        if self._last_err is None:
+            return None
+        eps = self._slot_eps.astype(np.float64)
+        err = self._last_err
+        return np.where(np.isfinite(err),
+                        np.maximum(err / np.maximum(eps, 1e-12) - 1.0, 0.0),
+                        1.0)
+
+    def _enforce_deadlines(self) -> None:
+        """Stop the slots whose SLO deadline has passed: the query retires
+        this round with the best estimate available (time bounds trade
+        against accuracy, not against an answer)."""
+        now = self.t_model
+        due = [s for s in range(self.max_slots)
+               if self.slot_wq[s] is not None
+               and self.slot_wq[s].slo is not None
+               and self.slot_wq[s].slo.has_deadline
+               and now >= self.slot_wq[s].arrival_t
+               + self.slot_wq[s].slo.deadline_s]
+        if not due:
+            return
+        stopped_now = self.state.stopped.cpu().numpy()
+        late = [s for s in due if not stopped_now[s]]
+        if late:
+            stopped = self.state.stopped.clone()
+            stopped[torch.as_tensor(late, device=stopped.device)] = True
+            self.state = self.state._replace(stopped=stopped)
 
     def _record_trajectory(self, rep, b) -> None:
         """Append this round's ``(m, est, ci_halfwidth, b_eff, weight)`` point
@@ -777,6 +1460,8 @@ class OLAWorkloadServer:
         if not self._any_active():
             return False
         with tr.span("round", round=self.rounds):
+            if self.scheduler is not None:
+                self._apply_scheduling()
             b = self.engine.budget_ladder(float(self.state.budget))
             with tr.span("claims"):
                 self.state, data = self.engine.round_data(self.state)
@@ -789,8 +1474,24 @@ class OLAWorkloadServer:
                 self.state, rep = self.engine.round_fn(b, mode)(
                     self.state, self.table, data, self.engine.speeds)
             self.rounds += 1
+            with tr.span("merge"):
+                if self.rollup is not None and self.rollup.cells:
+                    # resident slots running a promoted pattern fold their
+                    # statistics into the cell: one batched copy, none when
+                    # no such slot is resident
+                    ids = [s for s in range(self.max_slots)
+                           if self.slot_wq[s] is not None
+                           and self.rollup.get(self.slot_wq[s].key)
+                           is not None]
+                    for s, row in slot_stats_fold(self.state, ids).items():
+                        self.rollup.fold(self.slot_wq[s].key, row)
             with tr.span("estimate"):
                 self._record_trajectory(rep, b)
+                if self.scheduler is not None:
+                    # next round's claim key reads this report
+                    self._last_err = rep.err.cpu().numpy().astype(float)
+                    if self.scheduler.config.deadline_enforcement:
+                        self._enforce_deadlines()
                 self._retire_finished(rep)
                 self._fold_group_discovery(rep)
                 if self._any_active() and bool(rep.exhausted):

@@ -7,8 +7,11 @@ Per query the plan, rounds resident, tuples seen, seeded tuples and HAVING
 decision must match, as must the server's round count, tuples scanned and
 top-up passes.  Estimates agree to a relative 1e-5: the same float32 terms,
 summed per round in another order.  A second workload drives a census (the
-scan exhausts the table) with top-up passes.
+scan exhausts the table) with top-up passes.  The measured-rates loader
+and the legacy keyword surface are checked against the reference's cases.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -145,15 +148,35 @@ def test_poisson_workload_matches_reference():
 
 
 def test_server_defaults_to_cuda_and_unported_options_raise(example):
+    """Without a card the constructor raises unless the caller asks for the
+    CPU; ``mesh`` and ``engine`` are not ported yet, while ``scheduler`` and
+    ``rollup`` are accepted (a config or a built object)."""
     _, _, tstore = example
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ts.OLAWorkloadServer(tstore, TConfig())
-    for name in ("scheduler", "rollup", "mesh", "engine"):
+    for name in ("mesh", "engine"):
         with pytest.raises(NotImplementedError):
             ts.OLAWorkloadServer(tstore, TConfig(),
                                  ts.ServerOptions(**{name: object()}),
                                  device="cpu")
+    from repro_torch.sched import SchedulerConfig, WorkloadScheduler
+    from repro_torch.serve.rollup import RollupConfig, RollupTier
+    for sched, rollup in ((SchedulerConfig(), RollupConfig()),
+                          (WorkloadScheduler(), RollupTier(tstore))):
+        srv = ts.OLAWorkloadServer(
+            tstore, TConfig(),
+            ts.ServerOptions(scheduler=sched, rollup=rollup), device="cpu")
+        assert isinstance(srv.scheduler, WorkloadScheduler)
+        assert isinstance(srv.rollup, RollupTier)
+        snap = srv.metrics_snapshot()
+        assert snap["rollup_cells"] == 0
+        assert snap['admission_decisions{action="shed"}'] == 0
+    with pytest.raises(ValueError, match="different store"):
+        ts.OLAWorkloadServer(
+            tstore, TConfig(), ts.ServerOptions(
+                rollup=RollupTier(t_store(values_small(), 4, "ascii"))),
+            device="cpu")
     srv = ts.OLAWorkloadServer(tstore, TConfig(),
                                ts.ServerOptions(synopsis_budget_tuples=0),
                                device="cpu")
@@ -161,3 +184,110 @@ def test_server_defaults_to_cuda_and_unported_options_raise(example):
         srv.submit(tq.Query("sum", expr=tq.SquaredDiff(0, 1)))
     with pytest.raises(ValueError):
         srv.submit(tq.Query("sum"), plan="fastest")
+
+
+def values_small():
+    return make_synthetic_zipf(num_tuples=256, num_cols=8, seed=1)
+
+
+# ---------------------------------------------------------------------------
+# Measured rates and the legacy keyword surface
+# ---------------------------------------------------------------------------
+
+CALIBRATIONS = [
+    '{"calibration": {"backend": "ref", "cpu_tuples_per_sec": 1e12, '
+    '"io_bytes_per_sec": 1e3}}',
+    '{"calibration": {"backend": "cuda", "workers": 4, '
+    '"cpu_tuples_per_sec": 2e9, "io_bytes_per_sec": 5e8, '
+    '"cost_per_tuple": 700.0}}',
+    '{"workers": 8, "calibration": {"cpu_tuples_per_sec": 1e6, '
+    '"io_bytes_per_sec": 1e8, "round_base_us": 3000.0, '
+    '"round_slot_us": 250.0}}',
+    '{"calibration": {"backend": "ref", "cpu_tuples_per_sec": 1e6, '
+    '"io_bytes_per_sec": 1e8, "round_base_us": NaN, '
+    '"round_slot_us": -4.0, "cost_per_tuple": NaN}}',
+    '{"calibration": {"cpu_tuples_per_sec": 0}}',
+    '{"calibration": {"cpu_tuples_per_sec": NaN, "io_bytes_per_sec": 1e6}}',
+    '{"calibration": {"io_bytes_per_sec": 1e6}}',
+    '{"no_calibration": 1}',
+    'not json',
+]
+
+
+@pytest.mark.parametrize("payload", range(len(CALIBRATIONS)))
+def test_load_measured_rates_matches_reference(example, tmp_path, payload):
+    """test_ola_server.py's loader cases: the same MeasuredRates (or None)
+    from the same file, and the same plan choices on them."""
+    values, jstore, tstore = example
+    path = tmp_path / "cal.json"
+    path.write_text(CALIBRATIONS[payload])
+    want = js.load_measured_rates(str(path))
+    got = ts.load_measured_rates(str(path))
+    assert (got is None) == (want is None)
+    if want is None:
+        return
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for kw in (dict(num_workers=1), dict(num_workers=8),
+               dict(num_workers=128)):
+        assert ts.select_plan(tstore, TConfig(**kw), tq.Query("sum"),
+                              rates=got) == js.select_plan(
+            jstore, JConfig(**kw), jq.Query("sum"), rates=want)
+
+
+def test_rates_path_and_default_path(example, tmp_path, monkeypatch):
+    """``ServerOptions.rates_path`` loads a calibration (a missing file
+    keeps the modeled constants); the default path is this package's
+    calibration file at the repo root, never the JAX package's
+    ``BENCH_slot_kernel.json`` (whose calibration is a CPU run), whatever
+    the working directory; ``OLA_RATES_PATH`` overrides it."""
+    import os
+
+    _, _, tstore = example
+    path = tmp_path / "cal.json"
+    path.write_text(CALIBRATIONS[2])
+    srv = ts.OLAWorkloadServer(tstore, TConfig(num_workers=2),
+                               ts.ServerOptions(rates_path=str(path)),
+                               device="cpu")
+    assert srv.rates.round_slot_us == 250.0
+    srv = ts.OLAWorkloadServer(
+        tstore, TConfig(num_workers=2),
+        ts.ServerOptions(rates_path=str(tmp_path / "nope.json")),
+        device="cpu")
+    assert srv.rates is None
+
+    monkeypatch.delenv("OLA_RATES_PATH", raising=False)
+    monkeypatch.chdir(tmp_path)
+    repo_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    default = ts.default_rates_path()
+    assert default == os.path.join(repo_root, "BENCH_torch_slot_kernel.json")
+    assert os.path.basename(default) != "BENCH_slot_kernel.json"
+    assert os.path.basename(js.default_rates_path()) == \
+        "BENCH_slot_kernel.json"
+    if not os.path.exists(default):
+        assert ts.load_measured_rates() is None
+    monkeypatch.setenv("OLA_RATES_PATH", str(path))
+    assert ts.default_rates_path() == str(path)
+    assert ts.load_measured_rates().round_base_us == 3000.0
+
+
+def test_legacy_keywords_warn_once_and_reject_unknown(example, monkeypatch):
+    import warnings
+
+    _, _, tstore = example
+    monkeypatch.setattr(ts, "_legacy_kwargs_warned", False)
+    with pytest.warns(DeprecationWarning, match="ServerOptions"):
+        srv = ts.OLAWorkloadServer(tstore, TConfig(num_workers=2),
+                                   device="cpu", max_slots=2)
+    assert srv.max_slots == 2
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", DeprecationWarning)
+        srv = ts.OLAWorkloadServer(tstore, TConfig(num_workers=2),
+                                   device="cpu", max_slots=3,
+                                   synopsis_budget_tuples=0)
+    assert srv.max_slots == 3 and srv.synopsis is None
+    with pytest.raises(TypeError, match="max_slotz"):
+        ts.OLAWorkloadServer(tstore, TConfig(), device="cpu", max_slotz=2)
+    with pytest.raises(TypeError, match="not both"):
+        ts.OLAWorkloadServer(tstore, TConfig(),
+                             ts.ServerOptions(max_slots=2), device="cpu",
+                             max_slots=2)
