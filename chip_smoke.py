@@ -92,14 +92,35 @@ either is missing or any phase fails.  Phases:
 12. rollup    — bench_workload.py's hot/cold mix (56 queries) on the same
                store with max_slots=8 and RollupConfig(promote_hits=2): a
                tier-1 answer, every answer within 3·ε, launches == rounds.
-13. times     — each kernel's time per launch beside its bound and the plain
+13. spmd parity — the multi-device engines (SPMDEngine, SlotSPMDEngine,
+               ServerOptions(mesh=...)) with 8 workers over 1 (NCCL), 2 and
+               4 (gloo) ranks spawned on the one card: tests/
+               test_engine_spmd.py's drives (frozen, slot with a mid-scan
+               admission, streamed, streamed with a two-chunk decoded
+               cache, grouped, the server) and, over 2 ranks, [sched-
+               parity]'s scheduled workload under NEUTRAL and variance
+               claims: every rank's state after every round and the
+               server's results bit for bit the single-device card run's;
+               kernels 1-5 launched on every rank.  (Phase 2 also holds
+               kernels 1-4 at a rank's worker widths W = 1 and 2 against
+               their plain versions and their own rows of the W = 4
+               launch, bit for bit: [rank-width].)
+14. spmd      — the packed deployment served over 2 gloo ranks x 2
+               workers on the one card, each rank with its own copy of
+               the store: phase 3's rounds, every answer bit for bit,
+               kernel 1 launches == rounds on each rank; per rank the ms
+               per round, the ms per round in collectives, the device idle
+               share of the first 25 rounds and the peak device memory.
+15. times     — each kernel's time per launch beside its bound and the plain
                version's time, the device kernels each call runs (one for
                every kernel but extract_parse), the mean server
                rounds, the kernel's share of round time and the tally
                fold's, each beside the card's name and power limit.
 
-``--kernels`` runs phases 1, 2 and the kernel times of 13 on the same
-stores and exits 0 when they pass, printing no result lines.
+``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
+stores and exits 0 when they pass, printing no result lines.  ``--spmd``
+runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
+pass, printing no result lines.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -329,7 +350,14 @@ def deployment_queries(values: np.ndarray) -> list[Query]:
     having_sel = values[:, 0] < 6e7
     # threshold 7% above the true value: the verdict (true) needs a CI
     # tighter than that margin
-    thr = 1.07 * float(lin[having_sel].sum())
+    return deployment_query_list(c, 1.07 * float(lin[having_sel].sum()))
+
+
+def deployment_query_list(c: int, thr: float) -> list[Query]:
+    """:func:`deployment_queries` over ``c`` columns with the HAVING
+    threshold ``thr`` (queries hold lambdas and do not pickle: a spawned
+    rank rebuilds them from these two numbers)."""
+    coef = tuple(1.0 / (k + 1) for k in range(c))
     return [
         Query(agg="sum", expr=Linear(coef), epsilon=0.05, name="sum-all"),
         Query(agg="count", pred=Range(0, 0.0, 4e7), epsilon=0.08,
@@ -1334,6 +1362,8 @@ def sched_trace(trace: list, floats: bool):
     def on_round(srv):
         st = srv.state
         rec = {f: getattr(st, f).cpu().numpy() for f in SCHED_TRACE}
+        # every worker's claim (under a mesh state.cur is the rank's)
+        rec["cur"] = srv.engine.coll.gather_workers(st.cur).cpu().numpy()
         rec["stats.m"] = st.stats.m.cpu().numpy()
         rec["weight"] = srv.table.weight.cpu().numpy()
         if floats:
@@ -1379,7 +1409,7 @@ def topup_phases() -> list:
 
 def serve_traced(store, device: str, scheduler, phases, floats: bool,
                  residency: str = "packed",
-                 engine=dict(num_workers=4, seed=7)) -> dict:
+                 engine=dict(num_workers=4, seed=7), mesh=None) -> dict:
     """Serve ``phases`` (lists of (query, arrival, slo, plan) items, each
     submitted once the previous one has run out) with max_slots=2: the
     per-round trace, the results, and the claim keys the scheduler
@@ -1396,7 +1426,8 @@ def serve_traced(store, device: str, scheduler, phases, floats: bool,
     trace = []
     with OLAWorkloadServer(
             store, EngineConfig(residency=residency, **engine),
-            options=ServerOptions(max_slots=2, scheduler=scheduler),
+            options=ServerOptions(max_slots=2, scheduler=scheduler,
+                                  mesh=mesh),
             device=device) as server:
         hooks = hook_timer(server, ("_apply_scheduling", "_admit_ready"))
         t0 = time.perf_counter()
@@ -2210,6 +2241,539 @@ def phase_stream_deployment(store, values, packed_run: dict) -> dict:
                 wall_s=wall, feed_s=feed["s"], counters=pf)
 
 
+# ------------------------------------------------------ rank-local widths ----
+def width_rows(out, sel: slice) -> list:
+    """The per-worker outputs of a kernel call cut to workers ``sel``."""
+    out = out if isinstance(out, tuple) else (out,)
+    return [t[sel] for t in out if t is not None]
+
+
+def check_width(what: str, b: int, run, plain, full) -> dict:
+    """One rank-width case: three launches with the same bits, every output
+    row bit for bit the same worker's row of the W = 4 launch (``full``),
+    and the stats within the phase-2 tolerance of the plain version."""
+    got = same_bits(run, what)
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    for g, f in zip([t for t in got_t if t is not None], full, strict=True):
+        if not torch.equal(g.view(torch.int32), f.view(torch.int32)):
+            raise AssertionError(f"{what}: a worker's rows differ from its "
+                                 "rows of the W = 4 launch")
+    rel = check_sums(got_t[0].cpu().numpy(), plain.cpu().numpy(), b, what)
+    return dict(B=b, max_rel_err_sums=rel)
+
+
+def phase_rank_widths(packed, sizes, lpacked, lsizes) -> list[dict]:
+    """Kernels 1-4 at a rank's worker widths W = 1 and 2 (the [spmd]
+    deployment runs kernel 1 at W = 2 on each rank): against the plain
+    version, three launches the same bits, and each worker's rows equal to
+    its rows of the W = 4 launch bit for bit.  The launch grid is
+    (tiles(B), W), so a worker's blocks and fold order do not depend on
+    W."""
+    rng = np.random.default_rng(31)
+    c = packed.shape[2] // FIELD_BYTES
+    rows = []
+    for b in EDGE_B:
+        inputs = kernel_inputs(packed, sizes, b, rng)
+        pk, jw, idx, b_eff, *plan = inputs
+        coeffs, lo, hi, isc, gate, wts = plan
+        slab, _, _, _, mb = stream_inputs(inputs)
+        w4, r, rec = slab.shape
+        dec = extract_parse_cuda(slab.reshape(w4 * r, rec), c).reshape(
+            w4, r, c)
+        base, groups, salt = grouped_case(lpacked, lsizes, b, rng, "main")
+        gc_ = lpacked.shape[2] // FIELD_BYTES
+        full = {
+            "slot_extract": slot_extract_cuda(*inputs, return_cols=True),
+            "slot_extract_stream": slot_extract_stream_cuda(
+                slab, idx, b_eff, *plan, mb, cache_cap=CACHE_CAP),
+            "slot_eval_decoded": slot_eval_decoded_cuda(
+                dec, idx, b_eff, *plan, mb, cache_cap=CACHE_CAP),
+            "slot_extract_grouped": slot_extract_grouped_cuda(
+                *base, *groups, salt, kref.TALLY_BUCKETS, return_cols=True),
+        }
+        for w in (1, 2):
+            for lo_w in range(0, 4, w):
+                s = slice(lo_w, lo_w + w)
+                cases = {
+                    "slot_extract": (
+                        lambda s=s: slot_extract_cuda(
+                            pk, jw[s], idx[s], b_eff[s], *plan,
+                            return_cols=True),
+                        slot_extract_ref(pk, jw[s], idx[s], b_eff[s],
+                                         coeffs, lo, hi, isc, gate,
+                                         num_cols=c, weights=wts)[0]),
+                    "slot_extract_stream": (
+                        lambda s=s: slot_extract_stream_cuda(
+                            slab[s], idx[s], b_eff[s], *plan, mb[s],
+                            cache_cap=CACHE_CAP),
+                        kref.slot_extract_stream_ref(
+                            slab[s], idx[s], b_eff[s], coeffs, lo, hi, isc,
+                            gate, num_cols=c, weights=wts)),
+                    "slot_eval_decoded": (
+                        lambda s=s: slot_eval_decoded_cuda(
+                            dec[s], idx[s], b_eff[s], *plan, mb[s],
+                            cache_cap=CACHE_CAP),
+                        kref.slot_eval_decoded_ref(
+                            dec[s], idx[s], b_eff[s], coeffs, lo, hi, isc,
+                            gate, weights=wts)),
+                    "slot_extract_grouped": (
+                        lambda s=s: slot_extract_grouped_cuda(
+                            base[0], base[1][s], base[2][s], base[3][s],
+                            *base[4:], *groups, salt, kref.TALLY_BUCKETS,
+                            return_cols=True),
+                        kref.slot_extract_grouped_ref(
+                            base[0], base[1][s], base[2][s], base[3][s],
+                            *base[4:9], *groups, salt, num_cols=gc_,
+                            return_cols=False, weights=base[9])[0]),
+                }
+                for name, (run, plain) in cases.items():
+                    rows.append(dict(kernel=name, W=w, **check_width(
+                        f"{name} W={w} workers {lo_w}.. B={b}", b, run,
+                        plain, width_rows(full[name], s))))
+        log(f"[rank-width] B={b}: kernels 1-4 at W = 1 and 2 against their "
+            f"plain versions (sums max rel err "
+            f"{max(x['max_rel_err_sums'] for x in rows if x['B'] == b):.3g}),"
+            f" 3 launches the same bits, every worker's rows == its rows of "
+            f"the W = 4 launch, bit for bit")
+    return rows
+
+
+# ---------------------------------------------------------------- spmd ----
+# the multi-rank phases: each rank a spawned process on the one card; a
+# rank count of 1 runs NCCL, more share the card over gloo (NCCL refuses
+# two ranks on one device)
+SPMD_RANKS = (1, 2, 4)
+SPMD_JOIN_S = 600.0           # a rank group's time limit
+SPMD_PG_TIMEOUT_S = 120
+SPMD_WORKERS = 8
+COEF8 = tuple(1.0 / (k + 1) for k in range(8))
+
+
+def spmd_mesh(ranks: int, rank: int, init_file: str, device: str):
+    """Join the rank group and return its one-dimensional ``data`` mesh."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    backend = "nccl" if device == "cuda" and ranks == 1 else "gloo"
+    # the ranks share the host's cores: an intra-op pool of every core per
+    # rank oversubscribes them
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", rank=rank,
+        world_size=ranks,
+        timeout=datetime.timedelta(seconds=SPMD_PG_TIMEOUT_S))
+    return init_device_mesh(device, (ranks,), mesh_dim_names=("data",))
+
+
+def spmd_record(eng, state, rep=None, grouped=False) -> dict:
+    """A round's state on the host: ``cur`` gathered over the ranks, the
+    integer and float state, the statistics, the estimates."""
+    rec = {f: getattr(state, f).cpu().numpy() for f in (
+        "head", "scan_m", "offset", "closed", "raw_touched", "budget",
+        "t_io", "t_cpu", "calib_sum", "calib_cnt", "cache", "schedule",
+        "stopped")}
+    rec["cur"] = eng.coll.gather_workers(state.cur).cpu().numpy()
+    for f in ("m", "ysum", "ysq", "psum"):
+        rec["stats." + f] = getattr(state.stats, f).cpu().numpy()
+    if grouped:
+        for f in ("gm", "gys", "gyq", "gps"):
+            rec[f] = getattr(state, f).cpu().numpy()
+    if rep is not None:
+        for f in ("estimate", "lo", "hi", "err", "bytes_round"):
+            rec[f] = getattr(rep, f).cpu().numpy()
+        if grouped:
+            for f in ("g_est", "g_err", "g_n", "g_tal"):
+                rec[f] = getattr(rep, f).cpu().numpy()
+    return rec
+
+
+def spmd_slot_queries():
+    return [Query(agg="sum", expr=Linear(COEF8), pred=Range(0, 0.0, 6e7),
+                  epsilon=0.04, name="s"),
+            Query(agg="count", pred=Range(1, 0.0, 7e7), epsilon=0.06,
+                  name="c"),
+            Query(agg="avg", expr=Linear(COEF8), epsilon=0.05, name="a")]
+
+
+def spmd_drives(device: str, mesh=None) -> dict:
+    """tests/test_engine_spmd.py's drives on ``device``, single-device
+    (``mesh`` None) or over the mesh's ranks: the state after every round
+    (and the served results).  frozen: 4,096 tuples, 8 columns, 16 uneven
+    ASCII chunks, single-pass, a 32-row synopsis cache; slot: 2,048
+    tuples, 12 chunks, a third query admitted at round 3, and the same
+    drive streamed (and with a two-chunk decoded cache); grouped: 2,048
+    wiki-like tuples, 8 chunks, max_groups=4; server: max_slots=4 with a
+    synopsis.  num_workers=8 split over the ranks."""
+    from repro_torch.core.engine import OLAEngine
+    from repro_torch.core.engine_spmd import SlotSPMDEngine, SPMDEngine
+
+    def slot_engine(store, s, cfg):
+        return (SlotOLAEngine(store, s, cfg, device=device) if mesh is None
+                else SlotSPMDEngine(store, s, cfg, mesh, device=device))
+
+    zipf = make_synthetic_zipf(2048, 8, seed=3)
+    store = store_dataset(zipf, 12, "ascii", uneven=True)
+    out = {}
+
+    def slot_drive(cfg):
+        eng = slot_engine(store, 4, cfg)
+        q0, q1, q2 = spmd_slot_queries()
+        table = empty_slot_table(4, 8, device=device)
+        for s, q in ((0, q0), (1, q1)):
+            table = slot_table_set(table, s, encode_slot(q, 8,
+                                                         plan="single_pass"))
+        trace = []
+        try:
+            state = eng.init_state()
+            for r in range(24):
+                if r == 3:
+                    table = slot_table_set(table, 2, encode_slot(
+                        q2, 8, plan="single_pass"))
+                b = eng.budget_ladder(float(state.budget))
+                state, data = eng.round_data(state)
+                mode, data = eng.data_mode(data)
+                state, rep = eng.round_fn(b, mode)(state, table, data,
+                                                   eng.speeds)
+                trace.append(spmd_record(eng, state, rep))
+        finally:
+            eng.close()
+        return dict(trace=trace)
+
+    slot_cfg = dict(num_workers=SPMD_WORKERS, budget_init=32, budget_min=32,
+                    budget_max=32, seed=5, cache_cap=16)
+    out["slot"] = slot_drive(EngineConfig(**slot_cfg))
+    out["stream"] = slot_drive(EngineConfig(residency="stream", **slot_cfg))
+    block = store.max_chunk_tuples * store.codec.num_cols * 4
+    out["stream, 2-chunk cache"] = slot_drive(EngineConfig(
+        residency="stream", decoded_cache_bytes=2 * block, **slot_cfg))
+
+    fstore = store_dataset(make_synthetic_zipf(4096, 8, seed=3), 16,
+                           "ascii", uneven=True)
+    fq = Query(agg="sum", expr=Linear(COEF8), pred=Range(0, 0.0, 0.5e8),
+               epsilon=0.05)
+    fcfg = EngineConfig(num_workers=SPMD_WORKERS, strategy="single_pass",
+                        budget_init=64, seed=5, cache_cap=32)
+    eng = (OLAEngine(fstore, [fq], fcfg, device=device) if mesh is None
+           else SPMDEngine(fstore, [fq], fcfg, mesh, device=device))
+    state, trace = eng.init_state(), []
+    for _ in range(300):
+        b = eng.budget_ladder(float(state.budget))
+        state, data = eng.round_data(state)
+        state, rep = eng.round_fn(b)(state, data, eng.speeds)
+        trace.append(spmd_record(eng, state, rep))
+        if bool(rep.all_stopped) or bool(rep.exhausted):
+            break
+    out["frozen"] = dict(trace=trace)
+
+    wv, _ = make_wiki_like(2048, num_languages=12, seed=7)
+    gstore = store_dataset(wv, 8, "ascii", uneven=True)
+    gcfg = EngineConfig(max_groups=4, **slot_cfg)
+    qg = Query(agg="sum", expr=Linear((0.0, 1.0, 0.0, 0.0)), epsilon=0.03,
+               group_by=GroupBy(col=0, max_groups=4, top_k=2,
+                                values=[0.0, 1.0, 2.0]))
+    qd = Query(agg="count", pred=Range(3, 0.0, 400.5), epsilon=0.05,
+               group_by=GroupBy(col=0, max_groups=4, top_k=2))
+    eng = slot_engine(gstore, 2, gcfg)
+    table = empty_slot_table(2, 4, 4, device=device)
+    for s, q in ((0, qg), (1, qd)):
+        table = slot_table_set(table, s, encode_slot(
+            q, 4, plan="single_pass", max_groups=4))
+    state, trace = eng.init_state(), []
+    for _ in range(10):
+        b = eng.budget_ladder(float(state.budget))
+        state, data = eng.round_data(state)
+        state, rep = eng.round_fn(b)(state, table, data, eng.speeds)
+        trace.append(spmd_record(eng, state, rep, grouped=True))
+    out["grouped"] = dict(trace=trace)
+
+    trace = []
+    with OLAWorkloadServer(store, EngineConfig(num_workers=SPMD_WORKERS,
+                                               seed=5),
+                           options=ServerOptions(
+                               max_slots=4, synopsis_budget_tuples=512,
+                               mesh=mesh), device=device) as srv:
+        q0, q1, q2 = spmd_slot_queries()
+        for q, at in ((q0, 0.0), (q1, 0.0), (q2, 2e-4)):
+            srv.submit(q, arrival_t=at)
+        srv.run(on_round=lambda s: trace.append(spmd_record(s.engine,
+                                                            s.state)))
+        out["server"] = dict(trace=trace, rounds=srv.rounds, results=[
+            tuple(getattr(r, f) for f in RESULT_INTS + RESULT_FLOATS)
+            for r in sorted(srv.results, key=lambda r: r.qid)])
+    return out
+
+
+def spmd_sched_runs(device: str, mesh=None) -> dict:
+    """[sched-parity]'s scheduled workload (the small example table with
+    SLOs, max_slots=2, num_workers=4) under NEUTRAL and under
+    SchedulerConfig(slot_capacity=1.0, preempt=True) with variance claims,
+    single-device or over the mesh's ranks."""
+    values = make_synthetic_zipf(num_tuples=16384, num_cols=8, seed=0)
+    store = store_dataset(values, num_chunks=64, fmt="ascii")
+    work = [[(q, at, slo, None)
+             for q, at, slo in parity_slo_workload(values)]]
+    scheds = {"neutral": lambda: WorkloadScheduler(NEUTRAL),
+              "variance": lambda: WorkloadScheduler(SchedulerConfig(
+                  slot_capacity=1.0, preempt=True,
+                  claim_policy="variance"))}
+    out = {}
+    for name, make in scheds.items():
+        run = serve_traced(store, device, make(), work, floats=True,
+                           mesh=mesh)
+        out[name] = {k: run[k] for k in ("trace", "rounds")}
+        out[name]["results"] = run["results"]
+    return out
+
+
+def spmd_parity_rank(rank: int, ranks: int, init_file: str, out_dir: str,
+                     device: str) -> None:
+    """One rank of [spmd-parity]: every drive over the mesh, launches
+    counted per kernel, results to ``out_dir/rank<r>.pkl``."""
+    import pickle
+
+    import torch.distributed as dist
+
+    mesh = spmd_mesh(ranks, rank, init_file, device)
+    try:
+        reset_launches()
+        out = spmd_drives(device, mesh)
+        if ranks == 2:
+            out["sched"] = spmd_sched_runs(device, mesh)
+        out["launches"] = launch_counts()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, ranks: int, args: tuple, tag: str) -> list:
+    """Run ``fn(rank, ranks, init_file, out_dir, *args)`` on ``ranks``
+    spawned processes, joined within SPMD_JOIN_S (every one killed past
+    it); each rank's pickled result."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spmd_") as tmp:
+        ctx = mp.start_processes(
+            fn, args=(ranks, os.path.join(tmp, "pg"), tmp, *args),
+            nprocs=ranks, join=False, start_method="spawn")
+        deadline = time.monotonic() + SPMD_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"{tag}: {ranks} ranks did not "
+                                         f"finish in {SPMD_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        out = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
+
+
+def same_trace(got: list, want: list, what: str) -> None:
+    """Round-for-round equality of two state traces, bit for bit."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rounds, single device "
+                             f"{len(want)}")
+    for r, (g, w) in enumerate(zip(got, want)):
+        for f in w:
+            a, b = np.asarray(g[f]), np.asarray(w[f])
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{what}: round {r}: {f} differs")
+
+
+def same_results(got: list, want: list, what: str) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} results, single device "
+                             f"{len(want)}")
+    for g, w in zip(got, want):
+        for u, v in zip(g, w):
+            if not (u == v or (u != u and v != v)):
+                raise AssertionError(f"{what}: {w[1]}: {g} != {w}")
+
+
+def phase_spmd_parity(device: str = "cuda") -> dict:
+    """Every drive of :func:`spmd_drives` over 1 (NCCL), 2 and 4 (gloo)
+    ranks on the card against the single-device card run, bit for bit,
+    round for round, on every rank; under 2 ranks also the scheduled
+    workload (NEUTRAL and variance claims).  Kernels 1-5 launched on every
+    rank."""
+    t0 = time.perf_counter()
+    single = spmd_drives(device)
+    sched = spmd_sched_runs(device)
+    log(f"[spmd-parity] single-device drives on the card in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{k} {len(v['trace'])} rounds" for k, v in single.items()))
+    secs = {}
+    for ranks in SPMD_RANKS:
+        t0 = time.perf_counter()
+        outs = spawn_ranks(spmd_parity_rank, ranks, (device,),
+                           "[spmd-parity]")
+        secs[ranks] = time.perf_counter() - t0
+        for rank, out in enumerate(outs):
+            where = f"[spmd-parity] D={ranks} rank {rank}"
+            for name, want in single.items():
+                same_trace(out[name]["trace"], want["trace"],
+                           f"{where} {name}")
+                if "results" in want:
+                    same_results(out[name]["results"], want["results"],
+                                 f"{where} {name}")
+            if ranks == 2:
+                for name, want in sched.items():
+                    same_trace(out["sched"][name]["trace"], want["trace"],
+                               f"{where} sched {name}")
+                    bitwise_equal(out["sched"][name], want,
+                                  f"{where} sched {name}")
+            idle = [k for k in ("slot_extract", "slot_extract_stream",
+                                "slot_eval_decoded", "slot_extract_grouped",
+                                "extract_parse")
+                    if out["launches"][k] == 0]
+            if idle and device == "cuda":
+                raise AssertionError(f"{where}: kernels never launched: "
+                                     f"{idle}")
+        log(f"[spmd-parity] D={ranks} ({'NCCL' if ranks == 1 else 'gloo'}, "
+            f"{SPMD_WORKERS // ranks} workers a rank): every drive's state, "
+            f"every round, and the server's results bit for bit the "
+            f"single-device card run's on all {ranks} rank(s)"
+            + ("; the scheduled workload too, NEUTRAL "
+               f"({sched['neutral']['rounds']} rounds) and variance "
+               f"({sched['variance']['rounds']} rounds)"
+               if ranks == 2 else "")
+            + f"; launches on rank 0 {outs[0]['launches']}; "
+            f"{secs[ranks]:.1f} s with the spawn")
+    return secs
+
+
+def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
+                         out_dir: str, store_dir: str, thr: float, arrivals,
+                         device: str) -> None:
+    """One rank of [spmd]: the packed deployment served over the mesh; its
+    first PROFILE_ROUNDS rounds under the profiler (device idle share),
+    the rest timed; collective seconds, launches and peak memory."""
+    import pickle
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    mesh = spmd_mesh(ranks, rank, init_file, device)
+    card = device == "cuda"
+    try:
+        store = ChunkStore.open(store_dir, "deployment")
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        server = OLAWorkloadServer(store, EngineConfig(**ENGINE),
+                                   options=ServerOptions(mesh=mesh,
+                                                         **OPTIONS),
+                                   device=device)
+        queries = deployment_query_list(NUM_COLS, thr)
+        for q, at in zip(queries, arrivals):
+            server.submit(q, arrival_t=at)
+        coll = server.engine.coll
+        reduce_ = coll._all_reduce
+        spent = {"s": 0.0, "n": 0}
+
+        def timed(t, op=None):
+            t1 = time.perf_counter()
+            out = reduce_(t, op)
+            spent["s"] += time.perf_counter() - t1
+            spent["n"] += 1
+            return out
+
+        coll._all_reduce = timed
+        sync = torch.cuda.synchronize if card else (lambda: None)
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if card else [])) as prof:
+            server.run(max_rounds=PROFILE_ROUNDS)
+            sync()
+        prof_wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        first = server.rounds
+        spent.update(s=0.0, n=0)
+        t0 = time.perf_counter()
+        results = server.run()
+        sync()
+        wall = time.perf_counter() - t0
+        out = dict(
+            rounds=server.rounds, truncated=server.truncated,
+            launches=launch_counts(), wall_s=wall, timed_rounds=(
+                server.rounds - first), coll_s=spent["s"],
+            collectives=spent["n"], idle=1.0 - busy / (prof_wall * 1e6),
+            peak=torch.cuda.max_memory_allocated() if card else 0,
+            results=[tuple(getattr(r, f) for f in RESULT_INTS
+                           + RESULT_FLOATS) for r in results])
+        server.close()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spmd(store, values, packed_run: dict, card: str,
+               device: str = "cuda") -> dict:
+    """The packed deployment served with ServerOptions(mesh=...) over 2
+    gloo ranks x 2 workers on the one card, each rank holding its own copy
+    of the 2 GiB store: the single-device run's rounds, every answer bit
+    for bit, kernel 1 launches == rounds on each rank (at W = 2)."""
+    queries = deployment_queries(values)
+    arrivals = [at for _, at in poisson_workload(
+        queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
+    ranks = 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        t0 = time.perf_counter()
+        write_disk_store(store, tmp)
+        log(f"[spmd] the deployment's chunks written for the ranks in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        thr = queries[2].having.threshold
+        outs = spawn_ranks(spmd_deployment_rank, ranks,
+                           (tmp, thr, arrivals, device), "[spmd]")
+        secs = time.perf_counter() - t0
+    want = [tuple(getattr(r, f) for f in RESULT_INTS + RESULT_FLOATS)
+            for r in packed_run["results"]]
+    single_ms = packed_run["wall_s"] / packed_run["rounds"] * 1e3
+    for rank, o in enumerate(outs):
+        where = f"[spmd] rank {rank}"
+        if o["truncated"] or o["rounds"] != packed_run["rounds"]:
+            raise AssertionError(f"{where}: {o['rounds']} rounds, the "
+                                 f"single-device run {packed_run['rounds']}")
+        same_results(o["results"], want, where)
+        if device == "cuda" and (o["launches"]["slot_extract"] != o["rounds"]
+                                 or sum(o["launches"].values())
+                                 != o["rounds"]):
+            raise AssertionError(f"{where}: launches {o['launches']} != "
+                                 f"rounds {o['rounds']}")
+        log(f"[spmd] {card}: rank {rank} of {ranks} (gloo, "
+            f"{ENGINE['num_workers'] // ranks} workers): {o['rounds']} "
+            f"rounds, every answer bit for bit the single-device run's, "
+            f"kernel 1 launches {o['launches']['slot_extract']} at W = "
+            f"{ENGINE['num_workers'] // ranks}; "
+            f"{o['wall_s'] / o['timed_rounds'] * 1e3:.3f} ms per round "
+            f"(after the {PROFILE_ROUNDS} profiled; single device "
+            f"{single_ms:.3f}), collectives "
+            f"{o['coll_s'] / o['timed_rounds'] * 1e3:.3f} ms per round "
+            f"({o['collectives'] / o['timed_rounds']:.2f} a round); device "
+            f"idle {100 * o['idle']:.1f}% of the first {PROFILE_ROUNDS} "
+            f"rounds; peak device memory {o['peak'] / 2**20:.1f} MiB")
+    log(f"[spmd] {secs:.1f} s with the spawn")
+    return dict(ranks=outs, seconds=secs)
+
+
 # --------------------------------------------------------------- times ----
 def time_cuda(fn, iters: int) -> float:
     """Mean ms per call over ``iters`` calls, CUDA events, after warm-up."""
@@ -2671,7 +3235,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", action="store_true",
                     help="build, kernel checks and kernel times only")
-    kernels_only = ap.parse_args(argv).kernels
+    ap.add_argument("--spmd", action="store_true",
+                    help="build, the rank-width kernel checks, the packed "
+                         "deployment and the multi-rank phases only")
+    args = ap.parse_args(argv)
+    kernels_only = args.kernels
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); this smoke runs on the GPU only", file=sys.stderr)
@@ -2704,12 +3272,23 @@ def main(argv=None) -> int:
         f"in {time.perf_counter() - t0:.1f} s")
 
     packed, sizes = store.packed_device_view("cuda")
+    if args.spmd:
+        lpacked, lsizes = lang_store_packed()
+        phase_rank_widths(packed, np.asarray(sizes), lpacked, lsizes)
+        del packed, lpacked
+        srv = phase_server(store, values)
+        phase_spmd_parity()
+        phase_spmd(store, values, srv, card)
+        log("[done] --spmd: build, rank-width checks, the packed deployment "
+            "and the multi-rank phases passed")
+        return 0
     checks = phase_kernel(packed, sizes)
     stream_checks = phase_stream_kernels(packed, sizes)
     gpacked, gsizes = gstore.packed_device_view("cuda")
     gsizes = np.asarray(gsizes)
     lpacked, lsizes = lang_store_packed()
     gchecks = phase_grouped_kernels(gpacked, gsizes, lpacked, lsizes)
+    phase_rank_widths(packed, np.asarray(sizes), lpacked, lsizes)
     del lpacked
     rows = phase_rows_kernels(packed, np.asarray(sizes), values)
     if kernels_only:
@@ -2738,6 +3317,10 @@ def main(argv=None) -> int:
     phase_sched_parity()
     sched = phase_sched(store, values, srv["packed"])
     rollup = phase_rollup(store, values, srv["packed"])
+    t0 = time.perf_counter()
+    phase_spmd_parity()
+    spmd = phase_spmd(store, values, srv, card)
+    spmd_s = time.perf_counter() - t0
     rows_run = {k: v for k, v in rows.items() if k not in ("plan", "sizes_t")}
     del rows
     packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s")}
@@ -2766,7 +3349,8 @@ def main(argv=None) -> int:
         f"host per round, kernel 1 {us(sched['check']['device_ms'])} us a "
         f"launch on a contended round; [rollup] {rollup['rounds']} rounds, "
         f"{rollup['wall_s'] / max(rollup['rounds'], 1) * 1e3:.3f} ms per "
-        f"round, {rollup['tier1']} tier-1 answers")
+        f"round, {rollup['tier1']} tier-1 answers; [spmd-parity] and "
+        f"[spmd] {spmd_s:.1f} s")
     log("[done]")
 
     def timed(name, b):
@@ -2783,7 +3367,9 @@ def main(argv=None) -> int:
         "launches": launches,
         "launches_by_path": {"packed": launches, "sched": sched["launches"],
                              "rollup": rollup["launches"],
-                             "ptf": ptf["launches"]},
+                             "ptf": ptf["launches"],
+                             "spmd": [o["launches"]["slot_extract"]
+                                      for o in spmd["ranks"]]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),
         "max_rel_err_sums": max(r["max_rel_err_sums"] for r in checks),

@@ -109,7 +109,8 @@ class EngineConfig:
     # round EXTRACT: "cuda" routes gather+parse+eval+reduce through the fused
     # kernel (kernels/ops.slot_extract — the CUDA kernel on the card, its
     # plain version for CPU tensors; linear+range plans, fixed-width ASCII,
-    # f32 sums); "ref" keeps the decode_ref + evaluator composition
+    # f32 sums); "ref" keeps the decode_ref + evaluator composition; "auto"
+    # picks "cuda" on a CUDA device where the kernel applies, else "ref"
     extract_backend: str = "cuda"
     # raw-data residency: "packed" keeps the whole store on the device as
     # one (N, M_max, rec) tensor; "stream" feeds each round a bounded
@@ -135,10 +136,10 @@ class EngineConfig:
     def __post_init__(self):
         if self.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.extract_backend not in ("ref", "cuda"):
+        if self.extract_backend not in ("ref", "cuda", "auto"):
             raise NotImplementedError(
                 f"extract_backend={self.extract_backend!r}: this package has "
-                "the 'cuda' fused kernel and the 'ref' composition")
+                "the 'cuda' fused kernel, the 'ref' composition and 'auto'")
         if self.residency not in ("packed", "stream"):
             raise ValueError(f"unknown residency {self.residency!r}")
         if self.decoded_cache_bytes < 0:
@@ -213,17 +214,124 @@ class RoundReport(NamedTuple):
 
 
 class _Collectives:
-    """Seam between single-device and multi-device rounds.  On one device
-    every operation is the identity, which is all this package runs."""
+    """Seam between single-device and multi-rank rounds.
+
+    ``gather_workers`` exposes every worker's flag in global worker order;
+    ``merge(sums, workers)`` returns one dict holding ``sums`` summed over
+    the ranks and ``workers`` (per-worker tensors, worker axis first)
+    gathered over every worker in global worker order, bit for bit;
+    ``my_base`` is this rank's first global worker id.  ``any`` and
+    ``maximum`` agree a host decision or a tensor across the ranks.  On one
+    device every operation is the identity, so both modes run the same
+    round body; :class:`GroupCollectives` is the multi-rank instance."""
+
+    ranks = 1
 
     def gather_workers(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
-    def merge(self, tree):
-        return tree
+    def merge(self, sums: dict, workers: Optional[dict] = None) -> dict:
+        return {**sums, **(workers or {})}
 
     def my_base(self) -> int:
         return 0
+
+    def any(self, flag: bool) -> bool:
+        return bool(flag)
+
+    def maximum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class GroupCollectives(_Collectives):
+    """:class:`_Collectives` over a ``torch.distributed`` process group: one
+    program per rank, the rank's ``workers_per_rank`` workers are its shard
+    of the worker axis, and ``device`` is where the rank's tensors live.
+
+    A merge packs its tensors into one flat buffer per wire dtype and runs
+    one ``all_reduce(SUM)`` each (typically an int32 and a float one).
+    Summed entries travel as themselves (bools as int32).  A gathered
+    entry travels as the 32-bit words of its values (a float32 or int32 as
+    one word, a float64 or int64 as two, a bool or byte widened to one) in
+    a zero-filled ``(W, words)`` int32 buffer that holds this rank's
+    workers at its own rows, so the gathers of a merge share its int32
+    reduction with the integer sums: every element has one
+    contributor, and an integer sum of one value and zeros is that value,
+    so the gather is exact for any value, -0.0 and NaN included.  Gathers
+    ride the same reduction as sums, so no backend needs ``all_gather``
+    (gloo has none for CUDA tensors) and the engine never branches on the
+    backend."""
+
+    def __init__(self, group, rank: int, ranks: int, workers_per_rank: int,
+                 device):
+        self.group = group
+        self.rank = int(rank)
+        self.ranks = int(ranks)
+        self.wpd = int(workers_per_rank)
+        self.device = torch.device(device)
+
+    def my_base(self) -> int:
+        return self.rank * self.wpd
+
+    def _all_reduce(self, t: torch.Tensor, op=None) -> torch.Tensor:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self.group)
+        return t
+
+    def gather_workers(self, x: torch.Tensor) -> torch.Tensor:
+        return self.merge({}, {"x": x})["x"]
+
+    def merge(self, sums: dict, workers: Optional[dict] = None) -> dict:
+        workers = workers or {}
+        wire: dict[torch.dtype, list] = {}
+        for key, t in sums.items():
+            carrier = torch.int32 if t.dtype == torch.bool else t.dtype
+            wire.setdefault(carrier, []).append(
+                (key, t, False, t.to(carrier).reshape(-1)))
+        base, wpd = self.my_base(), self.wpd
+        for key, t in workers.items():
+            if t.shape[0] != wpd:
+                raise ValueError(f"merge: {key!r} has {t.shape[0]} workers, "
+                                 f"this rank holds {wpd}")
+            rows = t.reshape(wpd, t.numel() // wpd)
+            words = (rows.to(torch.int32) if t.element_size() == 1
+                     else rows.contiguous().view(torch.int32))
+            full = torch.zeros((self.ranks * wpd, words.shape[1]),
+                               dtype=torch.int32, device=t.device)
+            full[base:base + wpd] = words
+            wire.setdefault(torch.int32, []).append(
+                (key, t, True, full.reshape(-1)))
+        out = {}
+        # one reduction per wire dtype, in an order every rank agrees on
+        for carrier in sorted(wire, key=str):
+            parts = wire[carrier]
+            flat = self._all_reduce(torch.cat([p[3] for p in parts]))
+            at = 0
+            for key, t, gathered, part in parts:
+                seg = flat[at:at + part.numel()]
+                at += part.numel()
+                if not gathered:
+                    out[key] = seg.reshape(t.shape).to(t.dtype)
+                    continue
+                seg = seg.reshape(self.ranks * wpd,
+                                  part.numel() // (self.ranks * wpd))
+                seg = (seg.to(t.dtype) if t.element_size() == 1
+                       else seg.view(t.dtype))
+                out[key] = seg.reshape((self.ranks * wpd,)
+                                       + tuple(t.shape[1:]))
+        return out
+
+    def any(self, flag: bool) -> bool:
+        t = torch.tensor([int(bool(flag))], dtype=torch.int32,
+                         device=self.device)
+        return bool(int(self._all_reduce(t).item()) > 0)
+
+    def maximum(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        return self._all_reduce(x.clone(), dist.ReduceOp.MAX)
 
 
 def _zeros(shape, dtype, like: torch.Tensor) -> torch.Tensor:
@@ -288,12 +396,23 @@ class EngineProgram:
                 "max_groups > 0 requires slot-table mode (grouped queries "
                 "run through the workload slot plane)")
         # the fused kernel parses fixed-width ASCII, needs linear+range
-        # plans and sums in f32: outside that "cuda" raises here, not
-        # mid-scan (use "ref" there)
-        self.fused = config.extract_backend == "cuda"
+        # plans and sums in f32: outside that an explicit "cuda" raises
+        # here, not mid-scan (use "ref" there), while "auto" resolves to
+        # "cuda" only on a CUDA device where the kernel applies
+        kernel_ok = (getattr(codec, "name", "") == "ascii"
+                     and self.dtype == torch.float32)
+        backend = config.extract_backend
+        if backend == "auto":
+            backend = "cuda" if dev.type == "cuda" and kernel_ok else "ref"
+            if backend == "cuda" and self.max_slots is None:
+                try:
+                    linear_plan(self.queries, self.num_cols)
+                except ValueError:
+                    backend = "ref"
+        self.extract_backend = backend
+        self.fused = backend == "cuda"
         if self.fused:
-            if (getattr(codec, "name", "") != "ascii"
-                    or self.dtype != torch.float32):
+            if not kernel_ok:
                 raise ValueError(
                     "extract_backend='cuda' requires the fixed-width ASCII "
                     "codec and float32 stats (the fused kernel parses ASCII "
@@ -385,12 +504,15 @@ class EngineProgram:
                 state = state._replace(cache=cache)
         return state
 
-    def plan_claims(self, state: EngineState
-                    ) -> tuple[np.ndarray, np.ndarray, int]:
+    def plan_claims(self, state: EngineState, cur: Optional[torch.Tensor]
+                    = None) -> tuple[np.ndarray, np.ndarray, int]:
         """Host-side replica of the round's CLAIM step: which chunk each
         worker holds this round, which workers are active, and the new
-        queue head — a pure function of ``(cur, head, schedule)``."""
-        cur = state.cur.cpu().numpy().astype(np.int64)
+        queue head — a pure function of ``(cur, head, schedule)``.  ``cur``
+        is every worker's claim in global worker order (default
+        ``state.cur``, which holds them all on one device)."""
+        cur = (state.cur if cur is None else cur).cpu().numpy().astype(
+            np.int64)
         head = int(state.head)
         n = self.n_chunks
         schedule = state.schedule.cpu().numpy()
@@ -572,11 +694,12 @@ class EngineProgram:
                     gval=slots.gval, gact=slots.gact, salt=state.round,
                     tally_buckets=self.tally_buckets)
                 # (W, S, G, 4) partials -> (S, G, W) sums; the workers'
-                # tallies add up to the round's (S, 3, H)
+                # (W, S, 3, H) tallies add up to the round's (S, 3, H)
+                # after the merge
                 g_sum_x = torch.movedim(gstats4[..., 1].to(dtype), 0, -1)
                 g_sum_xx = torch.movedim(gstats4[..., 2].to(dtype), 0, -1)
                 g_sum_p = torch.movedim(gstats4[..., 3].to(dtype), 0, -1)
-                tal = torch.sum(tal_w.to(dtype), dim=0)
+                tally_in = dict(tal_w=tal_w.to(dtype))
             else:
                 stats4, cols = kernel_ops.slot_extract(
                     data, j, idx, b_eff, coeffs, p_lo, p_hi, isc, gate_v,
@@ -630,15 +753,25 @@ class EngineProgram:
                 g_sum_x = sum_last(gx)                           # (S, G, W)
                 g_sum_xx = sum_last(gx * gx)
                 g_sum_p = sum_last(gp)
-                tal = self._round_tallies(colv, pr, gactf[:, -1],
-                                          state.round, dtype)
+                # the tallies' inputs, worker axis first; the tallies are
+                # folded after the merge
+                tally_in = dict(colv=torch.movedim(colv, 1, 0),
+                                pr=torch.movedim(pr, 1, 0))
 
         # ---- 3. MERGE -------------------------------------------------------
         # index_add_ replaces the reference's scatter-add.  Active workers
         # hold distinct chunks and inactive ones add exact zeros (x + 0 == x
         # in IEEE arithmetic), so each chunk receives at most one non-zero
         # contribution per round and the result does not depend on the
-        # order in which the adds land.
+        # order in which the adds land: neither within a rank nor in the
+        # sum of the ranks' partials, which is why a merged delta equals
+        # the single-device index_add_ bit for bit.  Three quantities add
+        # several non-zero terms into one number: the READ bytes (a float32
+        # sum over the workers), the group tallies (many workers' rows into
+        # one bucket) and the calibration sums below.  A float sum's bits
+        # follow the order of its adds, so their per-worker terms are
+        # gathered instead, bit for bit, and every rank folds them over all
+        # workers in the single-device order.
         af = active.to(_I32)
         deltas = dict(
             dm=_zeros((n,), _I32, mj).index_add_(0, j, b_eff * af),
@@ -658,8 +791,39 @@ class EngineProgram:
                 2, j, g_sum_xx * af)
             deltas["dgps"] = _zeros(gshape, dtype, mj).index_add_(
                 2, j, g_sum_p * af)
-            deltas["gtal"] = tal
-        deltas = coll.merge(deltas)
+
+        # READ accounting: a chunk costs its full raw bytes the first time it
+        # is extracted beyond what the synopsis supplied (Section 6.3)
+        needs_raw = active & (b_eff > 0) & (m_before >= state.cached_m[j])
+        newly_raw = needs_raw & ~state.raw_touched[j]
+        deltas["touched"] = _zeros((n,), _I32, mj).index_add_(
+            0, j, newly_raw.to(_I32))
+        workers = dict(bytes_w=torch.where(
+            newly_raw, self.chunk_bytes[j],
+            torch.zeros((), dtype=torch.float32, device=dev)))
+        if grouped:
+            workers.update(tally_in)
+        # extracted-tuple cache for synopsis construction: row r of chunk j
+        # holds the r-th tuple of its permutation window (append-only).  The
+        # slab kernels emit a per-worker delta, (W, cap, C) rows zero off
+        # the window; under several ranks the packed path scatters its
+        # decoded window into one too.  Gathered with the workers' chunk
+        # ids, the delta lands in the cache by one index_add_ over every
+        # worker on every rank.
+        def window():
+            rows = m_before[:, None] + k[None, :]                # (W, B)
+            writable = valid & active[:, None] & (rows < cap)
+            wi, ki = torch.nonzero(writable, as_tuple=True)
+            return wi, rows[wi, ki].long(), cols[wi, ki]
+
+        if cap > 0 and cache_rows is None and coll.ranks > 1:
+            wi, ri, vals = window()
+            cache_rows = torch.zeros(
+                (w_local, cap, self.num_cols), dtype=torch.float32,
+                device=dev).index_put_((wi, ri), vals)
+        if cache_rows is not None:
+            workers.update(cache_rows=cache_rows, cache_j=j)
+        deltas = coll.merge(deltas, workers)
         if slot_mode:
             # a slot only counts tuples extracted while it is active
             dm_q = slots.active.to(_I32)[:, None] * deltas["dmq"]
@@ -680,7 +844,13 @@ class EngineProgram:
             gys_new = state.gys + deltas["dgys"]
             gyq_new = state.gyq + deltas["dgyq"]
             gps_new = state.gps + deltas["dgps"]
-            g_tal = deltas["gtal"]
+            if self.fused:
+                g_tal = torch.sum(deltas["tal_w"], dim=0)
+            else:
+                g_tal = self._round_tallies(
+                    torch.movedim(deltas["colv"], 0, 1),
+                    torch.movedim(deltas["pr"], 0, 1), gactf[:, -1],
+                    state.round, dtype)
         else:
             gm_new, gys_new = state.gm, state.gys
             gyq_new, gps_new = state.gyq, state.gps
@@ -688,31 +858,18 @@ class EngineProgram:
                                 device=dev)
         scan_m = state.scan_m + deltas["dm"]
         offset = state.offset + deltas["dm"]
-
-        # READ accounting: a chunk costs its full raw bytes the first time it
-        # is extracted beyond what the synopsis supplied (Section 6.3)
-        needs_raw = active & (b_eff > 0) & (m_before >= state.cached_m[j])
-        newly_raw = needs_raw & ~state.raw_touched[j]
-        raw_touched = state.raw_touched | (coll.merge(
-            _zeros((n,), _I32, mj).index_add_(0, j, newly_raw.to(_I32))) > 0)
-        bytes_round = coll.merge(torch.sum(torch.where(
-            newly_raw, self.chunk_bytes[j],
-            torch.zeros((), dtype=torch.float32, device=dev))))
-
-        # extracted-tuple cache for synopsis construction: row r of chunk j
-        # holds the r-th tuple of its permutation window (append-only)
+        raw_touched = state.raw_touched | (deltas["touched"] > 0)
+        bytes_round = torch.sum(deltas["bytes_w"])
         if cache_rows is not None:
-            # the slab kernels' delta rows are zero off-window, so inactive
-            # workers (and chunk ids they repeat) add nothing
+            # rows off the window are zero, so inactive workers (and the
+            # chunk ids they repeat) add nothing
             cache = state.cache + torch.zeros_like(state.cache).index_add_(
-                0, j, cache_rows)
+                0, deltas["cache_j"], deltas["cache_rows"])
         elif cap > 0:
-            rows = m_before[:, None] + k[None, :]                # (W, B)
-            writable = valid & active[:, None] & (rows < cap)
-            wi, ki = torch.nonzero(writable, as_tuple=True)
+            # one device, packed: the window's rows straight into a copy
+            wi, ri, vals = window()
             cache = state.cache.clone()
-            cache.index_put_((j[wi], rows[wi, ki].long()), cols[wi, ki],
-                             accumulate=True)
+            cache.index_put_((j[wi], ri), vals, accumulate=True)
         else:
             cache = state.cache
 
@@ -769,15 +926,18 @@ class EngineProgram:
             acc=_zeros((n,), _I32, mj).index_add_(
                 0, j, (local_ok & active).to(_I32)),
             cls=_zeros((n,), _I32, mj).index_add_(0, j, close_w.to(_I32)),
-            calib_sum=torch.sum(torch.where(newly_acc, scan_mj, zero_d)),
-            calib_cnt=torch.sum(newly_acc.to(dtype)),
             b_eff_total=torch.sum(b_eff).to(_I32),
+        ), dict(
+            calib_w=torch.where(newly_acc, scan_mj, zero_d),
+            newly_w=newly_acc.to(dtype),
         ))
         acc_met = state.acc_met | (flag_deltas["acc"] > 0)
         closed = state.closed | (flag_deltas["cls"] > 0)
         cur = torch.where(close_w, torch.full_like(cur, IDLE), cur)
-        calib_sum = state.calib_sum + flag_deltas["calib_sum"].to(torch.float32)
-        calib_cnt = state.calib_cnt + flag_deltas["calib_cnt"].to(torch.float32)
+        calib_cnt_d = torch.sum(flag_deltas["newly_w"])
+        calib_sum = state.calib_sum + torch.sum(
+            flag_deltas["calib_w"]).to(torch.float32)
+        calib_cnt = state.calib_cnt + calib_cnt_d.to(torch.float32)
 
         # resource monitor: Eq. (4)'s two cost terms for this round
         round_cpu = (flag_deltas["b_eff_total"].to(torch.float32)
@@ -787,7 +947,7 @@ class EngineProgram:
         cpu_bound = round_cpu > round_io
 
         # budget (t_eval) update — §5.4 rules
-        any_acc = flag_deltas["calib_cnt"] > 0
+        any_acc = calib_cnt_d > 0
         halve = torch.where(cpu_bound, state.first_est, any_acc)
         decay = torch.where(halve, state.decay * 0.5,
                             torch.clamp(state.decay * 2.0, max=1.0))
@@ -1131,24 +1291,64 @@ class _ResidencyMixin:
     assemble, read-ahead hint for the next schedule positions).  It returns
     ``(state, data)``: streaming assembly is where permanent read failures
     surface, and each one quarantines the lost chunk in the returned state
-    instead of raising into the caller's round loop."""
+    instead of raising into the caller's round loop.
+
+    ``coll`` is the engine's :class:`_Collectives`: under several ranks the
+    slab holds this rank's workers only, and every host decision that
+    steers the round loop (the claims, a quarantine, the decoded fraction,
+    a wall-clock stop) is agreed across the ranks before it is acted on."""
 
     pipeline = None
     tracer = NULL_TRACER
+    coll = _Collectives()
 
     def set_tracer(self, tracer) -> None:
         self.tracer = tracer
         if self.pipeline is not None:
             self.pipeline.tracer = tracer
 
+    def _init_engine(self, store, config: EngineConfig, device) -> np.ndarray:
+        """The host wrapper's set-up: ``device`` (CUDA unless the caller
+        names another), the residency, this rank's slice of the worker
+        speeds and ``m_max``; returns the chunk-size vector."""
+        self.device = resolve_device(device)
+        self.store = store
+        self.config = config
+        sizes = self._init_residency(store, config)
+        speeds = config.worker_speed or (1.0,) * config.num_workers
+        if len(speeds) != config.num_workers:
+            raise ValueError("worker_speed needs one factor per worker")
+        base, wl = self.coll.my_base(), self._local_workers()
+        self.speeds = torch.tensor(speeds[base:base + wl],
+                                   dtype=torch.float32, device=self.device)
+        self.m_max = int(store.max_chunk_tuples)
+        return sizes
+
+    def _local_workers(self) -> int:
+        return self.config.num_workers // self.coll.ranks
+
+    def _local(self, state: EngineState) -> EngineState:
+        """``state`` with ``cur`` cut to this rank's workers (all of them
+        on one device)."""
+        if self.coll.ranks == 1:
+            return state
+        base = self.coll.my_base()
+        return state._replace(
+            cur=state.cur[base:base + self._local_workers()].clone())
+
+    def budget_ladder(self, b: float) -> int:
+        return budget_ladder(self.config, self.m_max, b)
+
     def _init_residency(self, store, config: EngineConfig) -> np.ndarray:
         """Set up ``self.packed``/``self.pipeline`` for the configured
-        residency on ``self.device``; returns the chunk-size vector."""
+        residency on ``self.device``; returns the chunk-size vector.  The
+        packed store is whole on every rank; a slab holds this rank's
+        workers."""
         self.quarantine_log: list[int] = []
         if config.residency == "stream":
             self.packed = None
             self.pipeline = SlabPrefetcher(
-                store, num_workers=config.num_workers,
+                store, num_workers=self._local_workers(),
                 row_multiple=config.slab_row_tile,
                 lookahead=config.prefetch_lookahead, device=self.device,
                 adaptive=config.prefetch_adaptive,
@@ -1160,33 +1360,47 @@ class _ResidencyMixin:
     def round_data(self, state: EngineState) -> tuple[EngineState, object]:
         if self.pipeline is None:
             return state, self.packed
+        coll = self.coll
+        base, wl = coll.my_base(), self.pipeline.num_workers
         with self.tracer.span("assemble"):
+            # the claims need every worker's cursor
+            j, active, new_head = self.program.plan_claims(
+                state, coll.gather_workers(state.cur))
+            j = np.asarray(j)[base:base + wl]
+            # never read a quarantined chunk: its worker still claims it
+            # but extracts b_eff == 0 from a zero slab row
+            qn = state.quarantined.cpu().numpy()
+            active = np.asarray(active)[base:base + wl] & ~qn[j]
+            # lost[w] = 1 + the chunk worker w could not read (0: none)
+            lost = np.zeros(wl, np.int32)
             while True:
-                j, active, new_head = self.program.plan_claims(state)
-                qn = state.quarantined.cpu().numpy()
-                # never read a quarantined chunk: its worker still claims it
-                # but extracts b_eff == 0 from a zero slab row
-                active = np.asarray(active) & ~qn[np.asarray(j)]
                 try:
-                    slab = self.pipeline.assemble(j, active)
+                    slab = self.pipeline.assemble(j, active & (lost == 0))
+                    break
                 except FaultError as e:
                     if e.chunk_id is None:
                         raise
-                    # retries exhausted, CRC mismatch or permanent loss:
-                    # drop the chunk from the population (and from the
-                    # decoded cache: its bytes are no longer trusted) and
-                    # re-plan.  Each pass quarantines one more chunk, so
-                    # the loop ends within the chunk count.
-                    state = quarantine_chunks(state, [e.chunk_id])
-                    self.drop_decoded_chunks([e.chunk_id])
-                    self.quarantine_log.append(int(e.chunk_id))
-                    continue
-                # read-ahead follows the state's schedule; quarantined
-                # chunks are skipped
-                nxt = state.schedule.cpu().numpy()[
-                    new_head:new_head + self.pipeline.lookahead]
-                self.pipeline.prefetch(int(p) for p in nxt if not qn[p])
-                return state, slab
+                    hit = (j == int(e.chunk_id)) & active & (lost == 0)
+                    if not hit.any():
+                        raise
+                    lost[hit] = int(e.chunk_id) + 1
+            # retries exhausted, CRC mismatch or permanent loss: every rank
+            # drops the lost chunks from the population (and from the
+            # decoded cache: their bytes are no longer trusted), in global
+            # worker order
+            lost_all = coll.gather_workers(torch.as_tensor(
+                lost, device=state.quarantined.device)).cpu().numpy()
+            for c in dict.fromkeys(int(x) - 1 for x in lost_all if x > 0):
+                state = quarantine_chunks(state, [c])
+                self.drop_decoded_chunks([c])
+                self.quarantine_log.append(c)
+            # read-ahead follows the state's schedule; quarantined chunks
+            # are skipped
+            qn = state.quarantined.cpu().numpy()
+            nxt = state.schedule.cpu().numpy()[
+                new_head:new_head + self.pipeline.lookahead]
+            self.pipeline.prefetch(int(p) for p in nxt if not qn[p])
+            return state, slab
 
     def drop_decoded_chunks(self, chunk_ids) -> int:
         """Evict chunks from the prefetcher's decoded cache (quarantine /
@@ -1197,10 +1411,23 @@ class _ResidencyMixin:
 
     def decoded_fraction(self) -> float:
         """Fraction of the store's tuples with decoded blocks cached (the
-        Eq. (4) CPU-cost discount input); 0.0 without a decoded cache."""
-        if self.pipeline is None:
+        Eq. (4) CPU-cost discount input); 0.0 without a decoded cache.
+        Under several ranks a chunk counts when any rank has it decoded,
+        so every rank reads the same fraction."""
+        if self.pipeline is None or self.pipeline.decoded is None:
             return 0.0
-        return self.pipeline.decoded_fraction()
+        if self.coll.ranks == 1:
+            return self.pipeline.decoded_fraction()
+        mask = self.coll.maximum(torch.as_tensor(
+            self.pipeline.decoded_mask(), dtype=torch.int32,
+            device=self.device))
+        return self.pipeline.decoded_fraction(mask.cpu().numpy() > 0)
+
+    def agree(self, flag: bool) -> bool:
+        """A host decision that ends a round loop (a wall-clock cut), true
+        on every rank when it is true on any: the ranks leave the loop
+        after the same round."""
+        return self.coll.any(flag)
 
     @staticmethod
     def data_mode(data) -> tuple[str, object]:
@@ -1224,27 +1451,18 @@ class OLAEngine(_ResidencyMixin):
 
     def __init__(self, store, queries: Sequence[Query], config: EngineConfig,
                  schedule: Optional[np.ndarray] = None, device=None):
-        self.device = resolve_device(device)
-        self.store = store
-        self.config = config
-        sizes = self._init_residency(store, config)
+        sizes = self._init_engine(store, config, device)
         self.program = EngineProgram(
             codec=store.codec, queries=queries, config=config,
             n_chunks=store.num_chunks, m_max=store.max_chunk_tuples,
             chunk_sizes=sizes, schedule=schedule, device=self.device)
-        speeds = config.worker_speed or (1.0,) * config.num_workers
-        if len(speeds) != config.num_workers:
-            raise ValueError("worker_speed needs one factor per worker")
-        self.speeds = torch.tensor(speeds, dtype=torch.float32,
-                                   device=self.device)
-        self.m_max = int(store.max_chunk_tuples)
 
     @property
     def queries(self):
         return self.program.queries
 
     def init_state(self, synopsis_seed: Optional[dict] = None) -> EngineState:
-        return self.program.init_state(synopsis_seed)
+        return self._local(self.program.init_state(synopsis_seed))
 
     def round_fn(self, b_static: int, decoded_mode: str = "none"):
         """The round step at budget ``b_static`` for the round variant
@@ -1253,12 +1471,10 @@ class OLAEngine(_ResidencyMixin):
 
         def step(state, data, speeds):
             return self.program.round_body(state, data, speeds, b_static,
+                                           self.coll,
                                            decoded_mode=decoded_mode)
 
         return step
-
-    def budget_ladder(self, b: float) -> int:
-        return budget_ladder(self.config, self.m_max, b)
 
     def run(self, max_rounds: int = 100_000, wall_timeout_s: float = 300.0,
             synopsis_seed: Optional[dict] = None, collect_history: bool = True):
@@ -1275,7 +1491,7 @@ class OLAEngine(_ResidencyMixin):
                 history.append(RoundReport(*(t.cpu().numpy() for t in rep)))
             if bool(rep.all_stopped) or bool(rep.exhausted):
                 break
-            if time.perf_counter() - t0 > wall_timeout_s:
+            if self.agree(time.perf_counter() - t0 > wall_timeout_s):
                 break
         return state, history
 
@@ -1291,28 +1507,19 @@ class SlotOLAEngine(_ResidencyMixin):
     def __init__(self, store, max_slots: int, config: EngineConfig,
                  schedule: Optional[np.ndarray] = None,
                  confidence: float = 0.95, device=None):
-        self.device = resolve_device(device)
-        self.store = store
-        self.config = config
-        sizes = self._init_residency(store, config)
+        sizes = self._init_engine(store, config, device)
         self.program = EngineProgram(
             codec=store.codec, config=config, n_chunks=store.num_chunks,
             m_max=store.max_chunk_tuples, chunk_sizes=sizes,
             schedule=schedule, max_slots=max_slots, confidence=confidence,
             device=self.device)
-        speeds = config.worker_speed or (1.0,) * config.num_workers
-        if len(speeds) != config.num_workers:
-            raise ValueError("worker_speed needs one factor per worker")
-        self.speeds = torch.tensor(speeds, dtype=torch.float32,
-                                   device=self.device)
-        self.m_max = int(store.max_chunk_tuples)
 
     @property
     def max_slots(self) -> int:
         return self.program.max_slots
 
     def init_state(self) -> EngineState:
-        return self.program.init_state()
+        return self._local(self.program.init_state())
 
     def round_fn(self, b_static: int, decoded_mode: str = "none"):
         """The round step at budget ``b_static`` for the round variant
@@ -1321,10 +1528,7 @@ class SlotOLAEngine(_ResidencyMixin):
 
         def step(state, table, data, speeds):
             return self.program.round_body(state, data, speeds, b_static,
-                                           slots=table,
+                                           self.coll, slots=table,
                                            decoded_mode=decoded_mode)
 
         return step
-
-    def budget_ladder(self, b: float) -> int:
-        return budget_ladder(self.config, self.m_max, b)

@@ -175,10 +175,11 @@ class SlabPrefetcher:
     """Assembles bounded per-round slabs from a :class:`ChunkStore`.
 
     One instance serves one engine: ``num_workers`` fixes the slab's leading
-    dim, ``row_multiple`` pads ``rows_max`` up to a multiple of the
-    engine's ``slab_row_tile`` so slab shapes stay stable, and ``device``
-    is the engine's device, where every slab is copied (CUDA unless the
-    caller names another).
+    dim (a multi-rank engine's rank passes its own workers' count, and
+    every slab holds those workers' chunks only), ``row_multiple`` pads
+    ``rows_max`` up to a multiple of the engine's ``slab_row_tile`` so
+    slab shapes stay stable, and ``device`` is the engine's device, where
+    every slab is copied (CUDA unless the caller names another).
 
     With ``decoded_cache_bytes > 0`` the prefetcher additionally maintains a
     :class:`DecodedChunkCache` and :meth:`assemble` returns a *mixed
@@ -418,15 +419,25 @@ class SlabPrefetcher:
         if self.decoded.put(j, blk):
             self.decoded_fills += 1
 
-    def decoded_fraction(self) -> float:
+    def decoded_mask(self) -> np.ndarray:
+        """(num_chunks,) bool: the chunks whose decoded blocks are cached."""
+        n = int(self.store.num_chunks)
+        if self.decoded is None:
+            return np.zeros(n, bool)
+        return np.fromiter((j in self.decoded for j in range(n)), bool, n)
+
+    def decoded_fraction(self, mask: Optional[np.ndarray] = None) -> float:
         """Fraction of the store's tuples whose decoded blocks are cached —
         the ``decoded_fraction`` term
         :func:`repro_torch.sched.admission.eq4_cost_terms` discounts the
-        Eq. (4) CPU cost by."""
+        Eq. (4) CPU cost by.  ``mask`` names the decoded chunks in place of
+        :meth:`decoded_mask` (a multi-rank engine passes the chunks decoded
+        on any rank)."""
         if self.decoded is None:
             return 0.0
-        total = int(self.store.num_tuples)
-        return min(1.0, self.decoded.tuples_cached / max(total, 1))
+        mask = self.decoded_mask() if mask is None else mask
+        cached = int(np.asarray(self.store.chunk_sizes, np.int64)[mask].sum())
+        return min(1.0, cached / max(int(self.store.num_tuples), 1))
 
     def drop_decoded(self, chunk_ids: Iterable[int]) -> int:
         """Drop chunks from the decoded cache (quarantine hook); returns the

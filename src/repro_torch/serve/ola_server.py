@@ -35,12 +35,14 @@ shared scan of the raw table:
 
 The server runs on one device, with packed or streaming residency
 (``EngineConfig.residency``; the decoded-chunk cache with
-``decoded_cache_bytes``).  A chunk whose reads fail for good is
-quarantined: the answers of every query live at or after that moment
-describe the surviving population and are flagged ``degraded``.  The
-scheduler's decisions read the modeled clock (Eq. (4) time, never wall
-time) and price their previews on the host.  Multi-device meshes and
-injected engines raise ``NotImplementedError`` until their slice lands.
+``decoded_cache_bytes``), or over the ranks of a mesh
+(``ServerOptions(mesh=...)``: :class:`~repro_torch.core.engine_spmd.
+SlotSPMDEngine`, the server running identically on every rank), or around
+an engine the caller built (``ServerOptions(engine=...)``).  A chunk whose
+reads fail for good is quarantined: the answers of every query live at or
+after that moment describe the surviving population and are flagged
+``degraded``.  The scheduler's decisions read the modeled clock (Eq. (4)
+time, never wall time) and price their previews on the host.
 """
 
 from __future__ import annotations
@@ -69,6 +71,7 @@ from repro_torch.core.engine import (
     slot_stats_write,
     zero_group_cells,
 )
+from repro_torch.core.engine_spmd import SlotSPMDEngine
 from repro_torch.core.estimators import BiLevelStats
 from repro_torch.core.groupby import GroupSketch, promote_values
 from repro_torch.core.queries import (
@@ -213,8 +216,9 @@ class ServerOptions:
     :class:`~repro_torch.serve.rollup.RollupTier`.  ``measured_rates`` (or
     a ``rates_path`` calibration file, :func:`load_measured_rates`) price
     the scan on measured rates instead of the modeled constants.  ``mesh``
-    and ``engine`` belong to a later slice and raise
-    ``NotImplementedError`` when set."""
+    (a ``DeviceMesh`` with a ``"data"`` dimension) runs the scan on :class:`~repro_torch.core.engine_spmd.SlotSPMDEngine`
+    over its ranks; ``engine`` serves on an engine the caller built over
+    the same store (its config and slot count win over the options')."""
 
     max_slots: int = 8
     synopsis_budget_tuples: int = 4096
@@ -331,13 +335,16 @@ class WorkloadResult:
 class OLAWorkloadServer:
     """Admits a stream of aggregate queries onto one shared OLA scan.
 
-    A host-side loop around :class:`SlotOLAEngine`: ``submit`` enqueues,
-    ``step`` runs one engine round (admitting and retiring between rounds),
-    ``run`` drives to completion.  The modeled clock is Eq. (4)'s
-    overlapped-pipeline time ``max(t_io, t_cpu)`` plus the idle gaps the
-    server skips while waiting for arrivals.  The engine, and so the packed
-    store, lives on ``device`` — the CUDA device unless the caller names
-    another; without one the constructor raises.
+    A host-side loop around :class:`SlotOLAEngine` (:class:`SlotSPMDEngine`
+    under a mesh): ``submit`` enqueues, ``step`` runs one engine round
+    (admitting and retiring between rounds), ``run`` drives to completion.
+    The modeled clock is Eq. (4)'s overlapped-pipeline time ``max(t_io,
+    t_cpu)`` plus the idle gaps the server skips while waiting for
+    arrivals.  The engine, and so the packed store, lives on ``device`` —
+    the CUDA device unless the caller names another (an injected engine's
+    own device); without one the constructor raises.  Under a mesh every
+    rank runs the same server on the same submissions: its decisions read
+    replicated state and the modeled clock, so the ranks stay in step.
     """
 
     def __init__(self, store, config: EngineConfig,
@@ -353,23 +360,45 @@ class OLAWorkloadServer:
                     "keyword arguments, not both")
             options = _options_from_legacy(legacy_kwargs)
         opts = options if options is not None else ServerOptions()
-        for name in ("mesh", "engine"):
-            if getattr(opts, name) is not None:
-                raise NotImplementedError(
-                    f"ServerOptions.{name} is not ported to repro_torch yet")
-        self.device = resolve_device(device)
         max_slots = opts.max_slots
-        if config.cache_cap == 0 and opts.synopsis_budget_tuples > 0:
-            # mid-scan seeding needs the extraction cache
-            cap = max(64, int(np.ceil(4 * opts.synopsis_budget_tuples
-                                      / max(store.num_chunks, 1))))
-            config = dataclasses.replace(config, cache_cap=cap)
+        engine = opts.engine
+        if engine is not None:
+            if engine.store is not store:
+                raise ValueError("engine was built over a different store")
+            if (opts.synopsis_budget_tuples > 0
+                    and engine.config.cache_cap == 0):
+                raise ValueError(
+                    "mid-scan synopsis seeding needs the extraction cache: "
+                    "build the engine with cache_cap > 0 or pass "
+                    "synopsis_budget_tuples=0")
+            if device is not None and (torch.device(device)
+                                       != engine.device):
+                raise ValueError(f"the engine lives on {engine.device}, "
+                                 f"not {device}")
+            config = engine.config
+            max_slots = engine.max_slots
+            self.device = engine.device
+        else:
+            self.device = resolve_device(device)
+            if config.cache_cap == 0 and opts.synopsis_budget_tuples > 0:
+                # mid-scan seeding needs the extraction cache
+                cap = max(64, int(np.ceil(4 * opts.synopsis_budget_tuples
+                                          / max(store.num_chunks, 1))))
+                config = dataclasses.replace(config, cache_cap=cap)
         self.store = store
         self.config = config
-        self.engine = SlotOLAEngine(store, max_slots, config,
-                                    schedule=opts.schedule,
-                                    confidence=opts.confidence,
-                                    device=self.device)
+        if engine is not None:
+            self.engine = engine
+        elif opts.mesh is not None:
+            self.engine = SlotSPMDEngine(store, max_slots, config, opts.mesh,
+                                         schedule=opts.schedule,
+                                         confidence=opts.confidence,
+                                         device=self.device)
+        else:
+            self.engine = SlotOLAEngine(store, max_slots, config,
+                                        schedule=opts.schedule,
+                                        confidence=opts.confidence,
+                                        device=self.device)
         self.rates = opts.measured_rates
         if self.rates is None and opts.rates_path is not None:
             self.rates = load_measured_rates(opts.rates_path)
@@ -1520,14 +1549,15 @@ class OLAWorkloadServer:
         If ``max_rounds`` or ``wall_timeout_s`` cuts the loop short,
         ``self.truncated`` is set and the returned list misses the
         unfinished queries.  ``on_round(server)`` is called after every
-        engine round."""
+        engine round.  Under a mesh the wall-clock cut is agreed across the
+        ranks, so every rank stops after the same round."""
         self.truncated = False
         t0 = time.perf_counter()
         while self.queue or self._any_active():
             if self.rounds >= max_rounds:
                 self.truncated = True
                 break
-            if time.perf_counter() - t0 > wall_timeout_s:
+            if self.engine.agree(time.perf_counter() - t0 > wall_timeout_s):
                 self.truncated = True
                 break
             stepped = self.step()

@@ -158,6 +158,49 @@ def test_unported_options_raise(kw):
             t_eng.EngineConfig(**kw)
 
 
+def _auto_programs(store, device):
+    """``extract_backend="auto"`` resolved for an ASCII slot engine, an
+    ASCII frozen engine with a linear query and with a non-linear one, a
+    float64 slot engine and a binary-codec slot engine."""
+    auto = dict(extract_backend="auto")
+    lin = tq.Query(agg="sum", expr=tq.Linear((1.0,) * 8))
+    sq = tq.Query(agg="sum", expr=tq.SquaredDiff(0, 1))
+    binary = t_store(make_synthetic_zipf(512, 8, seed=1), 4, "binary")
+    return [
+        t_eng.SlotOLAEngine(store, 2, t_eng.EngineConfig(**auto),
+                            device=device).program,
+        t_eng.OLAEngine(store, [lin], t_eng.EngineConfig(**auto),
+                        device=device).program,
+        t_eng.OLAEngine(store, [sq], t_eng.EngineConfig(**auto),
+                        device=device).program,
+        t_eng.SlotOLAEngine(store, 2, t_eng.EngineConfig(
+            stats_dtype="float64", **auto), device=device).program,
+        t_eng.SlotOLAEngine(binary, 2, t_eng.EngineConfig(**auto),
+                            device=device).program]
+
+
+def test_auto_backend_resolves_to_ref_on_the_cpu(store8):
+    """``"auto"`` picks the fused kernel only on a CUDA device: every CPU
+    engine resolves to the ``ref`` composition (as the reference's
+    ``"auto"`` does off the TPU)."""
+    _, ts = store8
+    for prog in _auto_programs(ts, "cpu"):
+        assert (prog.extract_backend, prog.fused) == ("ref", False)
+    assert t_eng.EngineConfig(extract_backend="auto").extract_backend == \
+        "auto"
+
+
+@pytest.mark.cuda
+def test_auto_backend_resolves_on_the_card(store8):
+    """On the card ``"auto"`` is ``"cuda"`` for ASCII float32 engines whose
+    queries lower to a linear plan, else ``"ref"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    _, ts = store8
+    got = [p.extract_backend for p in _auto_programs(ts, "cuda")]
+    assert got == ["cuda", "cuda", "ref", "ref", "ref"]
+
+
 @pytest.fixture(scope="module")
 def quickstart():
     """examples/quickstart.py's workload: 32,768 tuples x 16 columns in 64

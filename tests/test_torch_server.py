@@ -149,17 +149,37 @@ def test_poisson_workload_matches_reference():
 
 def test_server_defaults_to_cuda_and_unported_options_raise(example):
     """Without a card the constructor raises unless the caller asks for the
-    CPU; ``mesh`` and ``engine`` are not ported yet, while ``scheduler`` and
-    ``rollup`` are accepted (a config or a built object)."""
+    CPU; an injected ``engine`` is refused as the reference refuses it
+    (built over another store, or without the extraction cache that
+    synopsis seeding needs) and otherwise served on, its config, slot
+    count and device winning; ``scheduler`` and ``rollup`` are accepted (a
+    config or a built object).  ``mesh`` runs in tests/test_torch_spmd.py
+    (it needs a process group)."""
     _, _, tstore = example
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ts.OLAWorkloadServer(tstore, TConfig())
-    for name in ("mesh", "engine"):
-        with pytest.raises(NotImplementedError):
-            ts.OLAWorkloadServer(tstore, TConfig(),
-                                 ts.ServerOptions(**{name: object()}),
-                                 device="cpu")
+    from repro_torch.core.engine import SlotOLAEngine
+
+    other = SlotOLAEngine(t_store(values_small(), 4, "ascii"), 3,
+                          TConfig(cache_cap=16), device="cpu")
+    with pytest.raises(ValueError, match="different store"):
+        ts.OLAWorkloadServer(tstore, TConfig(),
+                             ts.ServerOptions(engine=other), device="cpu")
+    uncached = SlotOLAEngine(tstore, 3, TConfig(), device="cpu")
+    with pytest.raises(ValueError, match="extraction cache"):
+        ts.OLAWorkloadServer(tstore, TConfig(),
+                             ts.ServerOptions(engine=uncached), device="cpu")
+    mine = SlotOLAEngine(tstore, 3, TConfig(num_workers=2, cache_cap=16),
+                         device="cpu")
+    srv = ts.OLAWorkloadServer(tstore, TConfig(),
+                               ts.ServerOptions(engine=mine))
+    assert srv.engine is mine and srv.config is mine.config
+    assert srv.max_slots == 3 and srv.device == torch.device("cpu")
+    srv.submit(tq.Query("sum", expr=tq.Column(1), epsilon=0.1),
+               arrival_t=0.0)
+    (res,) = srv.run()
+    assert res.tuples_seen > 0 and np.isfinite(res.estimate)
     from repro_torch.sched import SchedulerConfig, WorkloadScheduler
     from repro_torch.serve.rollup import RollupConfig, RollupTier
     for sched, rollup in ((SchedulerConfig(), RollupConfig()),
