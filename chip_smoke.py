@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --kernels    # build, kernel checks and times only
+    python3 chip_smoke.py --ml         # build and the ML plane's phases only
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -107,8 +108,10 @@ either is missing or any phase fails.  Phases:
                launch, bit for bit: [rank-width].)
 14. spmd      — the packed deployment served over 2 gloo ranks x 2
                workers on the one card, each rank with its own copy of
-               the store: phase 3's rounds, every answer bit for bit,
-               kernel 1 launches == rounds on each rank; per rank the ms
+               the store, cut after SPMD_ROUNDS of phase 3's rounds: the
+               state at the cut and every answer retired by then bit for
+               bit phase 3's at that round, kernel 1 launches == rounds on
+               each rank; per rank the ms
                per round, the ms per round in collectives, the device idle
                share of the first 25 rounds and the peak device memory.
 15. times     — each kernel's time per launch beside its bound and the plain
@@ -117,10 +120,40 @@ either is missing or any phase fails.  Phases:
                rounds, the kernel's share of round time and the tally
                fold's, each beside the card's name and power limit.
 
+16. models    — the ML plane: ``DecoderLM`` at qwen3-0.6b's published
+               widths (28 layers, d_model 1024, 16 Q / 8 KV heads of 128,
+               SwiGLU 3072, vocab 151,936 padded to 152,064, tied, bf16
+               compute), random weights from a seed on the card: decode
+               token by token == forward within DECODE_TOL of the largest
+               logit; at PARITY_LAYERS layers (full widths) and float32
+               compute, TF32 off, the card's logits == the CPU's on the same
+               weights within F32_TOL; prefill ms of a (4, 512) batch and
+               decode ms a step at B = 3 (medians), peak device memory.
+17. serve     — ``ServeEngine`` at 28 layers with serve_batched.py's
+               shape (6 requests of 8-token prompts, 3 slots, 12 new
+               tokens) at max_len 512: every request done with 12 tokens,
+               a second engine of the same seed gives the same tokens; at
+               PARITY_LAYERS layers, float32, the card's tokens == the CPU
+               engine's; steps, ms a step, tokens a second, peak memory.
+18. ola-eval  — ``ola_eval`` over the 28-layer model's per-example loss
+               on ola_eval_demo.py's shards (ε 0.02, batch 32, seed 1):
+               within 3·ε of the exhaustive mean computed on the card, on
+               fewer examples than the set holds.
+19. ingest    — ``IngestGate(standard_ingest_queries(0.05))`` over
+               ``SyntheticCorpus(vocab=151936, num_segments=8,
+               docs_per_segment=512, doc_len=256, poison_every=3)``'s
+               metadata stores, card against CPU: the same decisions,
+               failed queries and tuples ratios; poisoned segments
+               rejected, clean ones admitted; kernel 1 launched.
+20. examples  — the six ``repro_torch.examples`` mains in-process on the
+               card at their defaults; quickstart's and
+               serve_ola_workload's answers within 3·ε of exact.
+
 ``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
 stores and exits 0 when they pass, printing no result lines.  ``--spmd``
 runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
-pass, printing no result lines.
+pass, printing no result lines.  ``--ml`` runs phases 1 and 16-20 and
+exits 0 when they pass, printing no result lines.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -130,6 +163,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -144,15 +178,21 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.controller import EstimationController  # noqa: E402
 from repro_torch.core.engine import EngineConfig, SlotOLAEngine  # noqa: E402
 from repro_torch.core.queries import (  # noqa: E402
     TRUE, And, Column, GroupBy, Having, Linear, Query, Range,
     empty_slot_table, encode_slot, linear_plan, slot_table_set)
 from repro_torch.data.chunkstore import ChunkStore  # noqa: E402
+from repro_torch.data.corpus import (  # noqa: E402
+    SyntheticCorpus, standard_ingest_queries)
 from repro_torch.data.generator import (  # noqa: E402
     make_ptf_like, make_synthetic_zipf, make_wiki_like, store_dataset)
 from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
+from repro_torch.examples import (  # noqa: E402
+    explore_ptf, ola_eval_demo, quickstart, serve_batched,
+    serve_ola_workload, trace_workload)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -166,6 +206,8 @@ from repro_torch.kernels.slot_extract_grouped import (  # noqa: E402
     slot_extract_grouped_cuda)
 from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
     slot_eval_decoded_cuda, slot_extract_stream_cuda)
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.ola_ml import IngestGate, ola_eval  # noqa: E402
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
 from repro_torch.sched import (  # noqa: E402
@@ -173,6 +215,7 @@ from repro_torch.sched import (  # noqa: E402
     scan_tuples_per_s, slot_chunk_variances)
 from repro_torch.serve.ola_server import (  # noqa: E402
     OLAWorkloadServer, ServerOptions, poisson_workload)
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.rollup import RollupConfig  # noqa: E402
 
 # the deployment (see the module docstring)
@@ -244,6 +287,10 @@ EDGE_B = (1, 8, 31, 33, 64, 256, 257, 4096, 8192)
 # the kernels that run one device kernel per call
 ONE_LAUNCH = ("slot_extract", "slot_extract_grouped", "slot_extract_stream",
               "slot_eval_decoded", "chunk_agg", "round_stats")
+
+EXAMPLES = {m.__name__.rsplit(".", 1)[-1]: m for m in (
+    quickstart, serve_ola_workload, trace_workload, explore_ptf,
+    ola_eval_demo, serve_batched)}
 
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
            slot_eval_decoded_cuda, extract_parse_cuda,
@@ -1012,9 +1059,13 @@ def phase_server(store, values) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     # the B of every round: the ladder rung of the budget before it
     rungs = [server.engine.budget_ladder(float(server.state.budget))]
+    cut = {}    # the state and answers after SPMD_ROUNDS rounds, for [spmd]
 
     def on_round(srv):
         rungs.append(srv.engine.budget_ladder(float(srv.state.budget)))
+        if srv.rounds == SPMD_ROUNDS:
+            cut.update(state=spmd_record(srv.engine, srv.state),
+                       results=result_rows(srv.results))
 
     reset_launches()
     t0 = time.perf_counter()
@@ -1060,7 +1111,7 @@ def phase_server(store, values) -> dict:
     return dict(rounds=server.rounds, launches=launches, wall_s=wall,
                 rungs=rungs, packed=server.engine.packed,
                 sizes=np.asarray(store.chunk_sizes), results=results,
-                peak=peak)
+                peak=peak, cut=cut)
 
 
 # -------------------------------------------------------------- parity ----
@@ -2347,6 +2398,10 @@ SPMD_RANKS = (1, 2, 4)
 SPMD_JOIN_S = 600.0           # a rank group's time limit
 SPMD_PG_TIMEOUT_S = 120
 SPMD_WORKERS = 8
+# [spmd] serves the deployment's first SPMD_ROUNDS rounds (of 5,137, all
+# but four at B = 8): five of its eight queries retire by then, and the
+# state compared at the cut holds the other three's statistics
+SPMD_ROUNDS = 1500
 COEF8 = tuple(1.0 / (k + 1) for k in range(8))
 
 
@@ -2593,6 +2648,12 @@ def same_trace(got: list, want: list, what: str) -> None:
                 raise AssertionError(f"{what}: round {r}: {f} differs")
 
 
+def result_rows(results) -> list:
+    """Retired queries' integer and float fields, by query id."""
+    return [tuple(getattr(r, f) for f in RESULT_INTS + RESULT_FLOATS)
+            for r in sorted(results, key=lambda r: r.qid)]
+
+
 def same_results(got: list, want: list, what: str) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} results, single device "
@@ -2658,9 +2719,10 @@ def phase_spmd_parity(device: str = "cuda") -> dict:
 def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
                          out_dir: str, store_dir: str, thr: float, arrivals,
                          device: str) -> None:
-    """One rank of [spmd]: the packed deployment served over the mesh; its
-    first PROFILE_ROUNDS rounds under the profiler (device idle share),
-    the rest timed; collective seconds, launches and peak memory."""
+    """One rank of [spmd]: the packed deployment's first SPMD_ROUNDS
+    rounds served over the mesh; the first PROFILE_ROUNDS under the
+    profiler (device idle share), the rest timed; the state at the cut,
+    collective seconds, launches and peak memory."""
     import pickle
 
     import torch.distributed as dist
@@ -2705,7 +2767,7 @@ def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
         first = server.rounds
         spent.update(s=0.0, n=0)
         t0 = time.perf_counter()
-        results = server.run()
+        results = server.run(max_rounds=SPMD_ROUNDS)
         sync()
         wall = time.perf_counter() - t0
         out = dict(
@@ -2714,8 +2776,8 @@ def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
                 server.rounds - first), coll_s=spent["s"],
             collectives=spent["n"], idle=1.0 - busy / (prof_wall * 1e6),
             peak=torch.cuda.max_memory_allocated() if card else 0,
-            results=[tuple(getattr(r, f) for f in RESULT_INTS
-                           + RESULT_FLOATS) for r in results])
+            results=result_rows(results),
+            state=spmd_record(server.engine, server.state))
         server.close()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
@@ -2726,10 +2788,12 @@ def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
 
 def phase_spmd(store, values, packed_run: dict, card: str,
                device: str = "cuda") -> dict:
-    """The packed deployment served with ServerOptions(mesh=...) over 2
-    gloo ranks x 2 workers on the one card, each rank holding its own copy
-    of the 2 GiB store: the single-device run's rounds, every answer bit
-    for bit, kernel 1 launches == rounds on each rank (at W = 2)."""
+    """The packed deployment's first SPMD_ROUNDS rounds served with
+    ServerOptions(mesh=...) over 2 gloo ranks x 2 workers on the one card,
+    each rank holding its own copy of the 2 GiB store: the state after the
+    cut and every answer retired by then bit for bit the single-device
+    run's at that round, kernel 1 launches == rounds on each rank (at
+    W = 2)."""
     queries = deployment_queries(values)
     arrivals = [at for _, at in poisson_workload(
         queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
@@ -2744,15 +2808,18 @@ def phase_spmd(store, values, packed_run: dict, card: str,
         outs = spawn_ranks(spmd_deployment_rank, ranks,
                            (tmp, thr, arrivals, device), "[spmd]")
         secs = time.perf_counter() - t0
-    want = [tuple(getattr(r, f) for f in RESULT_INTS + RESULT_FLOATS)
-            for r in packed_run["results"]]
+    cut = packed_run["cut"]
+    if not cut:
+        raise AssertionError(f"[spmd] the single-device run ended before "
+                             f"round {SPMD_ROUNDS}")
     single_ms = packed_run["wall_s"] / packed_run["rounds"] * 1e3
     for rank, o in enumerate(outs):
         where = f"[spmd] rank {rank}"
-        if o["truncated"] or o["rounds"] != packed_run["rounds"]:
-            raise AssertionError(f"{where}: {o['rounds']} rounds, the "
-                                 f"single-device run {packed_run['rounds']}")
-        same_results(o["results"], want, where)
+        if not o["truncated"] or o["rounds"] != SPMD_ROUNDS:
+            raise AssertionError(f"{where}: {o['rounds']} rounds, not cut "
+                                 f"at {SPMD_ROUNDS}")
+        same_results(o["results"], cut["results"], where)
+        same_trace([o["state"]], [cut["state"]], where)
         if device == "cuda" and (o["launches"]["slot_extract"] != o["rounds"]
                                  or sum(o["launches"].values())
                                  != o["rounds"]):
@@ -2760,7 +2827,9 @@ def phase_spmd(store, values, packed_run: dict, card: str,
                                  f"rounds {o['rounds']}")
         log(f"[spmd] {card}: rank {rank} of {ranks} (gloo, "
             f"{ENGINE['num_workers'] // ranks} workers): {o['rounds']} "
-            f"rounds, every answer bit for bit the single-device run's, "
+            f"rounds (of {packed_run['rounds']}), the state at the cut and "
+            f"the {len(o['results'])} answers retired by then bit for bit "
+            f"the single-device run's, "
             f"kernel 1 launches {o['launches']['slot_extract']} at W = "
             f"{ENGINE['num_workers'] // ranks}; "
             f"{o['wall_s'] / o['timed_rounds'] * 1e3:.3f} ms per round "
@@ -3228,6 +3297,433 @@ def report_times(card: str, times: dict, stimes: dict, gtimes: dict,
             f"{per_round}")
 
 
+# ------------------------------------------------------------ ML plane ----
+# The ML plane's serving path: the dense DecoderLM at
+# qwen3-0.6b's published widths (28 layers, d_model 1024, 16 Q / 8 KV heads
+# of 128, SwiGLU 3072, vocab 151,936 padded to 152,064, tied), random
+# weights from ML_SEED on the card's generator.
+ML_ARCH = "qwen3-0.6b"
+ML_SEED = 0
+PARITY_LAYERS = 4            # the card-vs-CPU checks' depth, full widths
+# decode token by token against forward, bf16 compute over 28 layers: the
+# two paths round their bf16 products in other shapes, so the logits may
+# differ by a few bf16 ulps of the largest logit (one ulp = 2^-7 of it)
+DECODE_TOL = 2.0 ** -4
+# card against CPU at float32 compute (TF32 off): the products sum in
+# other orders on the two devices
+F32_TOL = 1e-4
+PREFILL_SHAPE = (4, 512)
+SERVE = dict(requests=6, slots=3, prompt=8, max_new=12, max_len=512)
+OLA_EVAL = dict(epsilon=0.02, batch=32, seed=1)
+CORPUS = dict(vocab=151936, num_segments=8, docs_per_segment=512,
+              doc_len=256, poison_every=3, seed=0)
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def peak_mib(device):
+    """Peak device memory since the last reset, MiB (None off the card)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def reset_peak(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def ml_config(layers: int | None = None, dtype: str | None = None):
+    cfg = get_config(ML_ARCH)
+    kw = {}
+    if layers is not None:
+        kw["num_layers"] = layers
+    if dtype is not None:
+        kw["compute_dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, in float64 on the host."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def median_ms(fn, reps: int, device) -> float:
+    """Median wall ms of ``fn()`` over ``reps`` runs after one warm-up, each
+    ending in a device sync."""
+    fn()
+    sync(device)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+BUSY_STEPS = 5
+
+
+def count_aten_ops(fn) -> int:
+    """The aten operators ``fn()`` dispatches (views included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def decode_busy_share(fn, device):
+    """Device busy time / wall over BUSY_STEPS calls of ``fn`` under
+    ``torch.profiler`` (None off the card)."""
+    if torch.device(device).type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(BUSY_STEPS):
+            fn()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy / wall_us
+
+
+def phase_models(card: str, device: str = "cuda",
+                 layers: int | None = None) -> dict:
+    """``DecoderLM`` at full width: decode token by token == forward within
+    DECODE_TOL (bf16); at PARITY_LAYERS layers and float32 compute the
+    card's logits == the CPU's on the same weights within F32_TOL; prefill
+    ms of a PREFILL_SHAPE batch and decode ms a step at B = 3 (medians),
+    peak device memory."""
+    cfg = ml_config(layers)
+    reset_peak(device)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, seed=ML_SEED)
+    model.compute_params()
+    sync(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[models] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+        f"{model.embedding.shape[0]}; {n_params / 1e9:.3f} B float32 "
+        f"parameters and their {cfg.compute_dtype} copy built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(ML_SEED)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                           device=device)
+    full, _ = model.forward(toks)
+    cache = model.init_cache(2, 64)
+    steps = []
+    for t in range(toks.shape[1]):
+        logits, cache = model.decode_step(
+            cache, toks[:, t:t + 1],
+            torch.full((2,), t, dtype=torch.int32, device=device))
+        steps.append(logits[:, 0])
+    dec = torch.stack(steps, 1)
+    d_dec = rel_diff(dec, full)
+    agree = float((dec.argmax(-1) == full.argmax(-1)).double().mean())
+    log(f"[models] decode token by token vs forward, (2, 32), bf16: max "
+        f"|diff| {d_dec:.3e} of max |logit| {float(full.abs().max()):.2f} "
+        f"(tolerance {DECODE_TOL:.3e}); argmax agrees at {agree:.3f} of "
+        "the positions")
+    if not d_dec <= DECODE_TOL or not torch.isfinite(full).all():
+        raise AssertionError(f"[models] decode differs from forward by "
+                             f"{d_dec:.3e} (> {DECODE_TOL:.3e})")
+    del dec, full, cache, steps
+
+    shape = PREFILL_SHAPE
+    ptoks = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                            device=device)
+    prefill = median_ms(lambda: model.prefill(ptoks), 5, device)
+    dcache = model.init_cache(3, 512)
+    dtok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 1)),
+                           device=device)
+    pos = [0]
+
+    def one_step():
+        p = torch.full((3,), pos[0], dtype=torch.int32, device=device)
+        model.decode_step(dcache, dtok, p)
+        pos[0] += 1
+
+    decode = median_ms(one_step, 20, device)
+    peak = peak_mib(device)
+    n_ops = count_aten_ops(one_step)
+    busy = decode_busy_share(one_step, device)
+    log(f"[models] a decode step dispatches {n_ops} aten ops "
+        f"({n_ops / cfg.num_layers:.0f} a layer); device busy "
+        f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of the "
+        f"wall over {BUSY_STEPS} profiled steps")
+    tokens = shape[0] * shape[1]
+    log(f"[models] {card}: prefill {shape} {prefill:.3f} ms median "
+        f"({tokens / prefill * 1e3:.0f} tokens/s); decode at B = 3 "
+        f"{decode:.3f} ms a step median ({3 / decode * 1e3:.1f} tokens/s); "
+        f"peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.1f} MiB'}")
+    del model, dcache, ptoks
+
+    # card against CPU: the same weights, float32 compute
+    cfg32 = ml_config(PARITY_LAYERS, "float32")
+    small = build_model(cfg32, device=device, seed=ML_SEED)
+    twin = build_model(cfg32, device="cpu", seed=ML_SEED + 1)
+    twin.load_state_dict({k: v.cpu() for k, v in small.state_dict().items()})
+    toks = torch.as_tensor(rng.integers(0, cfg32.vocab_size, (2, 32)))
+    d32 = rel_diff(small.forward(toks.to(device))[0], twin.forward(toks)[0])
+    log(f"[models] {PARITY_LAYERS} layers at full width, float32 compute "
+        f"(TF32 off), (2, 32): card vs CPU logits max |diff| {d32:.3e} of "
+        f"max |logit| (tolerance {F32_TOL:.0e})")
+    if not d32 <= F32_TOL:
+        raise AssertionError(f"[models] card and CPU logits differ by "
+                             f"{d32:.3e} (> {F32_TOL:.0e})")
+    return dict(decode_rel=d_dec, f32_rel=d32, prefill_ms=prefill,
+                decode_ms=decode, peak_mib=peak, params=n_params,
+                decode_ops=n_ops, decode_busy=busy)
+
+
+def serve_requests(engine, cfg, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               SERVE["prompt"])
+                    .astype(np.int32), max_new=SERVE["max_new"])
+            for i in range(SERVE["requests"])]
+    for r in reqs:
+        engine.submit(r)
+    return reqs
+
+
+def phase_serve(card: str, device: str = "cuda",
+                layers: int | None = None) -> dict:
+    """``ServeEngine`` at full width: serve_batched.py's shape at max_len
+    512; every request done with max_new tokens, the same tokens from a
+    second engine of the same seed; at PARITY_LAYERS layers and float32
+    compute, the card's tokens == the CPU engine's on the same weights."""
+    cfg = ml_config(layers)
+    runs = []
+    for rep in range(2):
+        reset_peak(device)
+        eng = ServeEngine(cfg, batch_slots=SERVE["slots"],
+                          max_len=SERVE["max_len"], seed=ML_SEED,
+                          device=device)
+        reqs = serve_requests(eng, cfg)
+        sync(device)
+        t0 = time.perf_counter()
+        steps = eng.run()
+        sync(device)
+        wall = time.perf_counter() - t0
+        toks = [r.out_tokens for r in reqs]
+        if not all(r.done and len(r.out_tokens) == SERVE["max_new"]
+                   for r in reqs):
+            raise AssertionError(f"[serve] a request was not served: "
+                                 f"{[(r.done, len(r.out_tokens)) for r in reqs]}")
+        runs.append(dict(steps=steps, wall=wall, toks=toks,
+                         peak=peak_mib(device)))
+        del eng
+    if runs[0]["toks"] != runs[1]["toks"]:
+        raise AssertionError("[serve] a second engine of the same seed gave "
+                             "other tokens")
+    run = runs[1]
+    fills = SERVE["requests"] * SERVE["prompt"]
+    n_tok = SERVE["requests"] * SERVE["max_new"]
+    calls = run["steps"] + fills
+    peak = run["peak"]
+    log(f"[serve] {card}: {cfg.name} ({cfg.num_layers} layers) "
+        f"{SERVE['requests']} requests x {SERVE['max_new']} tokens, "
+        f"{SERVE['slots']} slots, max_len {SERVE['max_len']}: "
+        f"{run['steps']} decode steps + {fills} prefill fill steps in "
+        f"{run['wall']:.3f} s ({run['wall'] / calls * 1e3:.3f} ms a step), "
+        f"{n_tok / run['wall']:.1f} generated tokens/s; peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.1f} MiB'}; the "
+        "same tokens from a second engine of the same seed")
+
+    cfg32 = ml_config(PARITY_LAYERS, "float32")
+    engs = [ServeEngine(cfg32, batch_slots=SERVE["slots"],
+                        max_len=SERVE["max_len"], seed=ML_SEED, device=d)
+            for d in (device, "cpu")]
+    engs[1].model.load_state_dict(
+        {k: v.cpu() for k, v in engs[0].model.state_dict().items()})
+    got = []
+    for eng in engs:
+        reqs = serve_requests(eng, cfg32)
+        eng.run()
+        got.append([r.out_tokens for r in reqs])
+    if got[0] != got[1]:
+        raise AssertionError(f"[serve] {PARITY_LAYERS}-layer float32 tokens "
+                             f"differ, card {got[0]} vs CPU {got[1]}")
+    log(f"[serve] {PARITY_LAYERS} layers at full width, float32 compute: "
+        f"the card's tokens == the CPU engine's for all "
+        f"{SERVE['requests']} requests")
+    return dict(steps=run["steps"], fills=fills, wall_s=run["wall"],
+                ms_per_step=run["wall"] / calls * 1e3,
+                tok_per_s=n_tok / run["wall"], peak_mib=peak)
+
+
+def phase_ola_eval(card: str, device: str = "cuda",
+                   layers: int | None = None) -> dict:
+    """``ola_eval`` over the full-width model's per-example loss on
+    ola_eval_demo.py's shards (24 of 64-127 examples of 65 tokens):
+    within 3·ε of the exhaustive mean computed on the card, on fewer
+    examples than the set holds."""
+    cfg = ml_config(layers)
+    model = build_model(cfg, device=device, seed=ML_SEED)
+    model.compute_params()
+    shards = ola_eval_demo.eval_shards(cfg)
+    total = sum(len(s) for s in shards)
+
+    def loss_of(ex):
+        return ola_eval_demo.per_example_loss(
+            model, torch.as_tensor(ex, device=device))
+
+    sync(device)
+    t0 = time.perf_counter()
+    res = ola_eval(loss_of, shards, device=device, **OLA_EVAL)
+    sync(device)
+    ola_s = time.perf_counter() - t0
+    full = float(torch.cat([loss_of(s) for s in shards]).double().mean())
+    sync(device)
+    wall = time.perf_counter() - t0
+    eps = OLA_EVAL["epsilon"]
+    log(f"[ola-eval] {card}: {cfg.name} ({cfg.num_layers} layers): "
+        f"estimate {res.estimate:.4f} [{res.lo:.4f}, {res.hi:.4f}] on "
+        f"{res.examples_used} of {total} examples "
+        f"({100 * res.examples_used / total:.1f}%, {res.shards_used} "
+        f"shards) in {ola_s:.3f} s; exhaustive mean {full:.4f} "
+        f"({100 * abs(res.estimate - full) / abs(full):.3f}% off, "
+        f"{wall - ola_s:.3f} s)")
+    if not (abs(res.estimate - full) <= 3 * eps * abs(full)
+            and res.examples_used < total and np.isfinite(full)):
+        raise AssertionError(f"[ola-eval] estimate {res.estimate} vs "
+                             f"exhaustive {full} (3·ε = {3 * eps}), "
+                             f"{res.examples_used} of {total} examples")
+    return dict(estimate=res.estimate, exhaustive=full,
+                used=res.examples_used, total=total, ola_s=ola_s,
+                exhaustive_s=wall - ola_s)
+
+
+def phase_ingest(device: str = "cuda") -> dict:
+    """``IngestGate(standard_ingest_queries(0.05))`` over the corpus's
+    metadata stores, card against CPU: the same decisions, failed queries
+    and tuples ratios; every poisoned segment rejected and every clean one
+    admitted; kernel 1 launched during the card's checks."""
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(**CORPUS)
+    log(f"[ingest] corpus: {len(corpus.segments)} segments x "
+        f"{CORPUS['docs_per_segment']} documents of {CORPUS['doc_len']} "
+        f"tokens (vocab {CORPUS['vocab']}), metadata as "
+        f"{corpus.segments[0].meta_store.codec.record_bytes}-byte ASCII "
+        f"records in {corpus.segments[0].meta_store.num_chunks} chunks a "
+        f"segment; {time.perf_counter() - t0:.2f} s")
+    queries = standard_ingest_queries(0.05)
+    reset_launches()
+    t0 = time.perf_counter()
+    card_d = [IngestGate(queries, device=device).check(s.meta_store)
+              for s in corpus.segments]
+    sync(device)
+    card_s = time.perf_counter() - t0
+    launches = launch_counts()["slot_extract"]
+    cpu_d = [IngestGate(queries, device="cpu").check(s.meta_store)
+             for s in corpus.segments]
+    for seg, a, b in zip(corpus.segments, card_d, cpu_d):
+        if (a.admitted, a.failed_query, a.tuples_ratio) != \
+                (b.admitted, b.failed_query, b.tuples_ratio):
+            raise AssertionError(
+                f"[ingest] segment {seg.index}: card {a.admitted, a.failed_query, a.tuples_ratio} "
+                f"vs CPU {b.admitted, b.failed_query, b.tuples_ratio}")
+        if a.admitted == seg.poison:
+            raise AssertionError(f"[ingest] segment {seg.index} (poison "
+                                 f"{seg.poison}) admitted={a.admitted}")
+    rounds = sum(r.rounds for d in card_d for r in d.results)
+    log(f"[ingest] card == CPU for every segment: admitted "
+        f"{[d.admitted for d in card_d]} (poisoned "
+        f"{[s.poison for s in corpus.segments]}), failed "
+        f"{[d.failed_query or '-' for d in card_d]}, tuples ratio "
+        f"{[round(d.tuples_ratio, 4) for d in card_d]}; {rounds} engine "
+        f"rounds, kernel 1 launches {launches}, {card_s:.2f} s on the card")
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError("[ingest] kernel 1 never launched")
+    return dict(launches=launches, rounds=rounds, card_s=card_s)
+
+
+def phase_examples(device: str = "cuda") -> dict:
+    """Each port example's ``main()`` in-process on the device with its
+    defaults; quickstart's and serve_ola_workload's answers within 3·ε of
+    their exact values."""
+    reset_launches()
+    secs = {}
+    args = [] if torch.device(device).type == "cuda" else ["--device",
+                                                            device]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, mod in EXAMPLES.items():
+            extra = (["--out", os.path.join(tmp, "ola_trace.json")]
+                     if name == "trace_workload" else [])
+            t0 = time.perf_counter()
+            with open(os.devnull, "w") as sink, \
+                    contextlib.redirect_stdout(sink):
+                out[name] = mod.main(args + extra)
+            sync(device)
+            secs[name] = time.perf_counter() - t0
+    q = out["quickstart"]
+    worst = [abs(float(q["result"].final_estimate[0]) - q["exact"])
+             / (q["query"].epsilon * abs(q["exact"]))]
+    s = out["serve_ola_workload"]
+    x = s["values"] @ np.asarray([1.0 / (k + 1) for k in range(8)])
+    exact = {"sum-all": x.sum(), "sum-tight": x.sum(), "avg-all": x.mean()}
+    eps = {qq.name: qq.epsilon for qq in s["queries"]}
+    for r in s["results"]:
+        if r.name in exact:
+            worst.append(abs(r.estimate - exact[r.name])
+                         / (eps[r.name] * abs(exact[r.name])))
+    if not max(worst) <= 3.0:
+        raise AssertionError(f"[examples] an answer misses 3·ε: {worst}")
+    if not out["explore_ptf"]["passed"] or \
+            not out["serve_batched"]["report"]["all_done"]:
+        raise AssertionError("[examples] explore_ptf rejected its batch or "
+                             "serve_batched left a request")
+    launches = launch_counts()["slot_extract"]
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError("[examples] kernel 1 never launched")
+    log(f"[examples] "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+        + f"; worst answer {max(worst):.3f}·ε; kernel 1 launches {launches}")
+    return dict(secs=secs, launches=launches, worst=max(worst))
+
+
+def ml_phases(card: str) -> dict:
+    """The ML plane's phases in order, each with its seconds."""
+    out, secs = {}, {}
+    for name, fn in (("models", lambda: phase_models(card)),
+                     ("serve", lambda: phase_serve(card)),
+                     ("ola-eval", lambda: phase_ola_eval(card)),
+                     ("ingest", phase_ingest),
+                     ("examples", phase_examples)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+    log("[ml] phase seconds: "
+        + ", ".join(f"[{k}] {v:.1f}" for k, v in secs.items())
+        + f"; {sum(secs.values()):.1f} in all")
+    out["secs"] = secs
+    return out
+
+
 # ---------------------------------------------------------------- main ----
 def main(argv=None) -> int:
     import argparse
@@ -3238,6 +3734,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spmd", action="store_true",
                     help="build, the rank-width kernel checks, the packed "
                          "deployment and the multi-rank phases only")
+    ap.add_argument("--ml", action="store_true",
+                    help="build and the ML plane's phases only")
     args = ap.parse_args(argv)
     kernels_only = args.kernels
     if not torch.cuda.is_available():
@@ -3255,6 +3753,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
 
     phase_build()
+    if args.ml:
+        ml_phases(card)
+        log("[done] --ml: build and the ML plane's phases passed")
+        return 0
 
     t0 = time.perf_counter()
     values, store = build_store(NUM_TUPLES, NUM_CHUNKS, NUM_COLS)
@@ -3338,6 +3840,10 @@ def main(argv=None) -> int:
     gdep = phase_grouped_deployment(gvalues, gstore)
     with run_grouped_server(gstore, "cuda") as server:
         profile_rounds(server, PROFILE_ROUNDS, "grouped")
+    del gstore, gvalues, gpacked
+    gc.collect()
+    torch.cuda.empty_cache()
+    ml = ml_phases(card)
 
     report_times(card, times, stimes, gtimes, dep, gdep)
     log(f"[times] {card}: serving plane: [ptf] ASCII chain {ptf['rounds']} "
@@ -3369,7 +3875,9 @@ def main(argv=None) -> int:
                              "rollup": rollup["launches"],
                              "ptf": ptf["launches"],
                              "spmd": [o["launches"]["slot_extract"]
-                                      for o in spmd["ranks"]]},
+                                      for o in spmd["ranks"]],
+                             "ingest": ml["ingest"]["launches"],
+                             "examples": ml["examples"]["launches"]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),
         "max_rel_err_sums": max(r["max_rel_err_sums"] for r in checks),

@@ -93,6 +93,36 @@ def feistel_permute_dyn(seed, index, m_dynamic, width_m: int) -> torch.Tensor:
     return v
 
 
+def feistel_permute(seed, index, domain_m: int) -> torch.Tensor:
+    """``perm_seed(index)`` for ``index in [0, M)``: a bijection on
+    ``[0, M)`` (the reference's static-width ``feistel_permute``).
+
+    It is :func:`feistel_permute_dyn` with ``m_dynamic = width_m = M``, the
+    same bijection: both fix the Feistel width by ``_half_bits(max(M, 2))``,
+    encrypt once and cycle-walk every value still ``>= M``; for ``M <= 1``
+    the reference returns zeros and the walk down to ``[0, 1)`` ends at 0
+    too.  ``index`` may have any shape; ``seed`` is one key.  Returns int64
+    indices of ``index``'s shape."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    index = torch.as_tensor(index, dtype=torch.int64, device=seed.device)
+    domain_m = int(domain_m)
+    if domain_m <= 1:
+        return torch.zeros_like(index)
+    flat = feistel_permute_dyn(seed, index.reshape(-1), domain_m, domain_m)
+    return flat.reshape(index.shape)
+
+
+def permutation_window(seed, start, count: int, domain_m: int) -> torch.Tensor:
+    """Positions ``perm[start : start+count]`` of a chunk's random order,
+    wrapping circularly (the Section 6.2 circular random scan): ``(count,)``
+    int64 tuple indices for one key."""
+    seed = torch.as_tensor(seed, dtype=torch.int64)
+    domain_m = int(domain_m)
+    offs = (torch.as_tensor(start, dtype=torch.int64, device=seed.device)
+            + torch.arange(count, dtype=torch.int64, device=seed.device))
+    return feistel_permute(seed, offs % max(domain_m, 1), domain_m)
+
+
 def permutation_window_dyn(seed, start, count: int, m_dynamic,
                            width_m: int) -> torch.Tensor:
     """Circular window ``perm[start : start+count] mod M_j`` per leading

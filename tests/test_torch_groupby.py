@@ -9,8 +9,12 @@
   count lanes equal; the sum lanes within rtol 2e-5 / atol 1e-2, the
   tolerance the reference holds its own grouped kernel to on these inputs
   (float32 sums of the same terms in another order, with cancellation:
-  mixed-sign values and coefficients); tallies ``array_equal`` (an integer
-  group column and 0/1 indicators make every tally sum exact in float32).
+  mixed-sign values and coefficients), or, where a row's terms cancel
+  beyond what that tolerance absorbs, within the cancellation's forward
+  error bound (:func:`_cancellation_bound`: XLA picks its dot order by
+  shape, so no fixed order of the port follows it everywhere); tallies
+  ``array_equal`` (an integer group column and 0/1 indicators make every
+  tally sum exact in float32).
 * ``SlotOLAEngine`` with a grouped table (pinned values, a discovery-only
   slot, an ungrouped slot, a promotion mid-run) beside the reference's
   ``ref`` path: integer state and ``gm`` equal every round, ``g_tal``
@@ -38,7 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from repro.core import engine as j_eng
@@ -180,6 +184,39 @@ def _grouped_case(seed=0, n=6, m=37, c=6, w=4, b=16, s=3, g=4, langs=5):
             gcol, gval, gact)
 
 
+def _cancellation_bound(cols, b_eff, coeffs, is_count):
+    """(W, S, 4) forward error bound of the (Σx, Σx²) lanes for a sum in
+    any order: a row's x = Σ_c coef_c·v_c of C float32 terms is off by at
+    most γ_C·A with A = Σ_c |coef_c·v_c| (γ_n = n·ε), and the sum over B
+    rows adds γ_B of its terms' magnitudes; x² adds (2|x| + γ_C·A)·γ_C·A.
+    Rows k < b_eff[w] are counted whatever their predicate or budget (an
+    upper bound), COUNT slots sum exact 0/1 values (bound 0), and the m and
+    Σp lanes are held exactly (bound 0)."""
+    eps = float(np.finfo(np.float32).eps)
+    w, b, c = cols.shape
+    v = cols.astype(np.float64)[:, :, None, :] * coeffs.astype(np.float64)
+    a = np.abs(v).sum(-1)                                        # (W, B, S)
+    x = np.abs(v.sum(-1))
+    live = (np.arange(b)[None, :] < np.asarray(b_eff)[:, None])[..., None]
+    a, x = a * live, x * live
+    g_c, g_b = c * eps, b * eps
+    bx = (g_c * a + g_b * x).sum(1)
+    bq = ((2 * x + g_c * a) * g_c * a + (g_b + eps) * x * x).sum(1)
+    out = np.zeros((w, coeffs.shape[0], 4))
+    out[..., 1], out[..., 2] = bx, bq
+    out[:, np.asarray(is_count) > 0] = 0.0
+    return out
+
+
+def _assert_close(got, want, bound):
+    """rtol 2e-5 / atol 1e-2, or within the cancellation bound where that
+    is the larger."""
+    tol = np.maximum(1e-2 + 2e-5 * np.abs(want), bound)
+    bad = np.abs(got.astype(np.float64) - want) > tol
+    assert not bad.any(), (np.argwhere(bad)[:4], got[bad][:4], want[bad][:4],
+                           tol[bad][:4])
+
+
 def _check_grouped_ref(case, salt):
     (packed, jw, idx, b_eff, coeffs, lo, hi, isc, gate, wts, gcol, gval,
      gact) = case
@@ -197,8 +234,9 @@ def _check_grouped_ref(case, salt):
     assert [a.shape for a in got] == [a.shape for a in want]
     assert np.array_equal(got[0][..., 0], want[0][..., 0])       # m lane
     assert np.array_equal(got[1][..., 0], want[1][..., 0])       # cell counts
-    np.testing.assert_allclose(got[0], want[0], rtol=2e-5, atol=1e-2)
-    np.testing.assert_allclose(got[1], want[1], rtol=2e-5, atol=1e-2)
+    bound = _cancellation_bound(t_cols.numpy(), b_eff, coeffs, isc)
+    _assert_close(got[0], want[0], bound)
+    _assert_close(got[1], want[1], bound[:, :, None])
     np.testing.assert_array_equal(got[2], want[2])               # tallies
     # an ungrouped slot has no cells and no tallies
     for s in np.flatnonzero(gcol < 0):
@@ -220,6 +258,9 @@ def test_grouped_plain_version_matches_reference_oracle(salt):
 @given(seed=st.integers(0, 2 ** 16), w=st.integers(1, 4),
        b=st.sampled_from([1, 8, 16, 33]), g=st.integers(2, 6),
        langs=st.integers(1, 9), salt=st.integers(0, 2 ** 32 - 1))
+# slot 2's two rows cancel ~3,500-fold: XLA sums their six terms in column
+# order at this shape, the port in four interleaved chains
+@example(seed=53634, w=1, b=16, g=4, langs=2, salt=0)
 def test_grouped_plain_version_matches_reference_hypothesis(seed, w, b, g,
                                                             langs, salt):
     case = list(_grouped_case(seed=seed, w=w, b=b, g=g, langs=langs))
