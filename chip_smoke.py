@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase
     python3 chip_smoke.py --kernels    # build, kernel checks and times only
     python3 chip_smoke.py --ml         # build and the ML plane's phases only
+    python3 chip_smoke.py --train      # build and the training phase only
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -145,15 +146,32 @@ either is missing or any phase fails.  Phases:
                metadata stores, card against CPU: the same decisions,
                failed queries and tuples ratios; poisoned segments
                rejected, clean ones admitted; kernel 1 launched.
-20. examples  — the six ``repro_torch.examples`` mains in-process on the
-               card at their defaults; quickstart's and
-               serve_ola_workload's answers within 3·ε of exact.
+20. train     — the training plane: smollm-135m reduced at float32
+               compute, the same torch-initialised tree on the card and
+               the CPU, four train steps: losses and the first grad_norm
+               within TRAIN_TOL; then ``Trainer`` at smollm-135m's published
+               widths (30 layers, d_model 576, 9/3 heads of 64, d_ff 1,536,
+               vocab 49,152, tied, bf16 compute, remat) over
+               train_with_verification.py's corpus (8 segments of 128
+               documents, every third poisoned) at batch 4 x 128 for 30
+               steps, a checkpoint every 15 and a failure at step 16:
+               every gate decision the CPU gate's, kernel 1 launched, one
+               restart restoring the checkpoint bit for bit, losses finite
+               and falling; ms a step, tokens a second, aten ops a step,
+               busy share, peak memory (the state's share and what a
+               step adds), checkpoint save / restore seconds.
+21. examples  — the seven ``repro_torch.examples`` mains in-process on the
+               card at their defaults (train_with_verification at
+               ``--steps 12``); quickstart's and serve_ola_workload's
+               answers within 3·ε of exact; train_with_verification's gate
+               decisions the CPU gate's and its losses finite.
 
 ``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
 stores and exits 0 when they pass, printing no result lines.  ``--spmd``
 runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
-pass, printing no result lines.  ``--ml`` runs phases 1 and 16-20 and
-exits 0 when they pass, printing no result lines.
+pass, printing no result lines.  ``--ml`` runs phases 1 and 16-21 and
+exits 0 when they pass, printing no result lines; ``--train`` runs phases
+1 and 20 the same way.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -190,9 +208,10 @@ from repro_torch.data.corpus import (  # noqa: E402
 from repro_torch.data.generator import (  # noqa: E402
     make_ptf_like, make_synthetic_zipf, make_wiki_like, store_dataset)
 from repro_torch.data.pipeline import peak_host_rss_bytes  # noqa: E402
+from repro_torch.distributed import FailureInjector  # noqa: E402
 from repro_torch.examples import (  # noqa: E402
     explore_ptf, ola_eval_demo, quickstart, serve_batched,
-    serve_ola_workload, trace_workload)
+    serve_ola_workload, trace_workload, train_with_verification)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -207,6 +226,7 @@ from repro_torch.kernels.slot_extract_grouped import (  # noqa: E402
 from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
     slot_eval_decoded_cuda, slot_extract_stream_cuda)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.convert import tree_from_module  # noqa: E402
 from repro_torch.ola_ml import IngestGate, ola_eval  # noqa: E402
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
@@ -217,6 +237,12 @@ from repro_torch.serve.ola_server import (  # noqa: E402
     OLAWorkloadServer, ServerOptions, poisson_workload)
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.rollup import RollupConfig  # noqa: E402
+from repro_torch.train import checkpoint as train_ckpt  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    init_train_state, make_train_step)
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_paths, tree_map  # noqa: E402
 
 # the deployment (see the module docstring)
 NUM_TUPLES = 8_388_608
@@ -290,7 +316,7 @@ ONE_LAUNCH = ("slot_extract", "slot_extract_grouped", "slot_extract_stream",
 
 EXAMPLES = {m.__name__.rsplit(".", 1)[-1]: m for m in (
     quickstart, serve_ola_workload, trace_workload, explore_ptf,
-    ola_eval_demo, serve_batched)}
+    ola_eval_demo, serve_batched, train_with_verification)}
 
 KERNELS = (slot_extract_cuda, slot_extract_stream_cuda,
            slot_eval_decoded_cuda, extract_parse_cuda,
@@ -3387,15 +3413,16 @@ def count_aten_ops(fn) -> int:
 
 def decode_busy_share(fn, device):
     """Device busy time / wall over BUSY_STEPS calls of ``fn`` under
-    ``torch.profiler`` (None off the card)."""
+    ``torch.profiler`` (None off the card).  Only the device's activity is
+    traced: host-op events would add the profiler's own work to the wall
+    and are never read."""
     if torch.device(device).type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(BUSY_STEPS):
             fn()
         torch.cuda.synchronize()
@@ -3670,8 +3697,11 @@ def phase_examples(device: str = "cuda") -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, mod in EXAMPLES.items():
-            extra = (["--out", os.path.join(tmp, "ola_trace.json")]
-                     if name == "trace_workload" else [])
+            extra = []
+            if name == "trace_workload":
+                extra = ["--out", os.path.join(tmp, "ola_trace.json")]
+            elif name == "train_with_verification":
+                extra = ["--steps", str(EXAMPLE_TRAIN_STEPS)]
             t0 = time.perf_counter()
             with open(os.devnull, "w") as sink, \
                     contextlib.redirect_stdout(sink):
@@ -3695,6 +3725,16 @@ def phase_examples(device: str = "cuda") -> dict:
             not out["serve_batched"]["report"]["all_done"]:
         raise AssertionError("[examples] explore_ptf rejected its batch or "
                              "serve_batched left a request")
+    # train_with_verification: the example's corpus, gated as on the CPU
+    tv = out["train_with_verification"]
+    check_gates(tv["log"], SyntheticCorpus(
+        vocab=get_config(TRAIN_ARCH, reduced=True).vocab_size,
+        **TRAIN_CORPUS), TrainerConfig().gate_epsilon, "examples")
+    tv_losses = [e["loss"] for e in tv["log"] if e["event"] == "step"]
+    if tv["result"]["steps"] != EXAMPLE_TRAIN_STEPS or \
+            not np.isfinite(tv_losses).all():
+        raise AssertionError(f"[examples] train_with_verification: "
+                             f"{tv['result']}")
     launches = launch_counts()["slot_extract"]
     if torch.device(device).type == "cuda" and launches == 0:
         raise AssertionError("[examples] kernel 1 never launched")
@@ -3704,6 +3744,256 @@ def phase_examples(device: str = "cuda") -> dict:
     return dict(secs=secs, launches=launches, worst=max(worst))
 
 
+# ------------------------------------------------------------ training ----
+# The training plane: smollm-135m (the reference's end-to-end training
+# arch) at its published widths (30 layers, d_model 576, 9 Q / 3 KV heads
+# of 64, SwiGLU 1536, vocab 49,152, tied, bf16 compute, remat on), trained
+# from random weights through the OLA ingest gate on
+# examples/train_with_verification.py's corpus at its batch (4 x 128).
+# 6 of the 8 segments are clean, so 5 steps a segment make 30 steps;
+# checkpoints every 15 steps keep the run to two saves of the ~1.6 GB
+# float32 state (params, mu, nu), and the failure one step after the
+# first restores it.
+TRAIN_ARCH = "smollm-135m"
+TRAIN = dict(steps_per_segment=5, batch=4, seq_len=128, max_steps=30,
+             ckpt_every=15)
+TRAIN_CORPUS = dict(num_segments=8, docs_per_segment=128, doc_len=128,
+                    poison_every=3, seed=0)
+TRAIN_FAIL_AT = TRAIN["ckpt_every"] + 1
+# card against CPU: the reduced model at float32 compute (TF32 off), four
+# steps on fixed batches; the embedding's backward adds with atomics on
+# the card, so the sums are not bit for bit
+TRAIN_PARITY_STEPS = 4
+TRAIN_PARITY_SHAPE = (4, 64)
+TRAIN_TOL = 1e-4
+TRAIN_TIME_REPS = 10
+EXAMPLE_TRAIN_STEPS = 12
+
+
+def token_batches(cfg, n: int, shape: tuple, seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, cfg.vocab_size, (shape[0], shape[1] + 1))
+        out.append({"tokens": torch.as_tensor(toks[:, :-1],
+                                              dtype=torch.int32),
+                    "labels": torch.as_tensor(toks[:, 1:],
+                                              dtype=torch.int32)})
+    return out
+
+
+def check_gates(log: list, corpus, epsilon: float, tag: str) -> list:
+    """Every segment gated; each ``gate`` event of a trainer's log equal to
+    the CPU gate's decision on that segment; poisoned segments rejected,
+    clean ones admitted.  Returns the events."""
+    gates = [e for e in log if e["event"] == "gate"]
+    if [e["segment"] for e in gates] != [s.index for s in corpus.segments]:
+        raise AssertionError(f"[{tag}] gated segments "
+                             f"{[e['segment'] for e in gates]}")
+    cpu = IngestGate(standard_ingest_queries(epsilon), device="cpu")
+    for e in gates:
+        seg = corpus.segments[e["segment"]]
+        d = cpu.check(seg.meta_store)
+        if (e["admitted"], e["failed"], e["tuples_ratio"]) != \
+                (d.admitted, d.failed_query, d.tuples_ratio):
+            raise AssertionError(
+                f"[{tag}] segment {seg.index}: "
+                f"{e['admitted'], e['failed'], e['tuples_ratio']} vs the "
+                f"CPU gate's {d.admitted, d.failed_query, d.tuples_ratio}")
+        if e["admitted"] == seg.poison:
+            raise AssertionError(f"[{tag}] segment {seg.index} (poison "
+                                 f"{seg.poison}) admitted={e['admitted']}")
+    return gates
+
+
+def cpu_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+
+def train_parity(device: str) -> dict:
+    """The reduced model at float32 compute: the same torch-initialised
+    tree on the card and the CPU, TRAIN_PARITY_STEPS steps on fixed
+    batches; per-step losses and the first grad_norm within TRAIN_TOL."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, reduced=True),
+                              compute_dtype="float32")
+    model = build_model(cfg, device="cpu", seed=ML_SEED)
+    tree = tree_from_module(model)
+    step = make_train_step(model.loss_fn, AdamWConfig(warmup_steps=2))
+    batches = token_batches(cfg, TRAIN_PARITY_STEPS, TRAIN_PARITY_SHAPE)
+    got = {}
+    for dev in (device, "cpu"):
+        state = init_train_state(tree_map(lambda t: t.to(dev), tree))
+        ms = []
+        for b in batches:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        got[dev] = ms
+    card, cpu = np.asarray(got[device]), np.asarray(got["cpu"])
+    loss_rel = float(np.max(np.abs(card[:, 0] - cpu[:, 0])
+                            / np.abs(cpu[:, 0])))
+    norm_rel = float(abs(card[0, 1] - cpu[0, 1]) / abs(cpu[0, 1]))
+    log(f"[train] {cfg.name} reduced ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}), float32 compute (TF32 off), {TRAIN_PARITY_STEPS} "
+        f"steps of {TRAIN_PARITY_SHAPE}: card vs CPU losses "
+        f"{[round(float(x), 5) for x in card[:, 0]]}, max rel diff "
+        f"{loss_rel:.3e}; "
+        f"first grad_norm rel diff {norm_rel:.3e} (tolerance {TRAIN_TOL:.0e})")
+    if not (loss_rel <= TRAIN_TOL and norm_rel <= TRAIN_TOL):
+        raise AssertionError(f"[train] card and CPU steps differ: losses "
+                             f"{loss_rel:.3e}, grad_norm {norm_rel:.3e}")
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel)
+
+
+def phase_train(card: str, device: str = "cuda", cfg=None) -> dict:
+    """The training plane: ``train_parity``, then ``Trainer`` at full width
+    (``cfg``, smollm-135m unless given) over the example's corpus with a
+    failure one step after the first checkpoint: every segment gated as the
+    CPU gate decides, kernel 1 launched, one restart, the restored state
+    equal bit for bit to the checkpoint the state was saved to, every loss
+    finite and the mean of the last five below that of the first five; then
+    the ms a step (median, host clock ending in a sync), tokens a second,
+    peak device memory, aten ops a step and the device's busy share."""
+    parity = train_parity(device)
+    cfg = cfg or get_config(TRAIN_ARCH)
+    corpus = SyntheticCorpus(vocab=cfg.vocab_size, **TRAIN_CORPUS)
+    saves, restores = [], []
+    real_save = train_ckpt.save
+
+    def timed_save(directory, step, state, **kw):
+        sync(device)
+        t0 = time.perf_counter()
+        out = real_save(directory, step, state, **kw)
+        saves.append(dict(step=step, s=time.perf_counter() - t0,
+                          state=None if saves else cpu_tree(state)))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainerConfig(**TRAIN, ckpt_dir=tmp)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg, tcfg, injector=FailureInjector(
+            fail_at_steps=(TRAIN_FAIL_AT,), kill_devices=0), device=device)
+        build_s = time.perf_counter() - t0
+        real_recover = trainer._recover
+
+        def timed_recover(state, killed):
+            sync(device)
+            t0 = time.perf_counter()
+            out = real_recover(state, killed)
+            sync(device)
+            restores.append(dict(s=time.perf_counter() - t0,
+                                 state=cpu_tree(out)))
+            return out
+
+        trainer._recover = timed_recover
+        reset_launches()
+        reset_peak(device)
+        train_ckpt.save = timed_save
+        try:
+            result = trainer.run(corpus)
+        finally:
+            train_ckpt.save = real_save
+        sync(device)
+        launches = launch_counts()["slot_extract"]
+        run_peak = peak_mib(device)
+        with np.load(os.path.join(tmp, f"step_{TRAIN['ckpt_every']}",
+                                  "arrays.npz")) as z:
+            on_disk = {k: z[k] for k in z.files}
+
+    gates = check_gates(trainer.log, corpus, tcfg.gate_epsilon, "train")
+    steps = [e for e in trainer.log if e["event"] == "step"]
+    losses = np.asarray([e["loss"] for e in steps])
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError("[train] kernel 1 never launched")
+    if result["restarts"] != 1 or len(restores) != 1 or \
+            result["steps"] != TRAIN["max_steps"]:
+        raise AssertionError(f"[train] {result['steps']} steps, "
+                             f"{result['restarts']} restarts")
+    # the restore: the first checkpoint's state, bit for bit, three ways
+    restored = dict(leaves_with_paths(restores[0]["state"]))
+    saved = dict(leaves_with_paths(saves[0]["state"]))
+    keys = ["/".join(map(str, k)) for k in restored]
+    if sorted(keys) != sorted(on_disk) or list(restored) != list(saved):
+        raise AssertionError("[train] the restored state's leaves are not "
+                             "the checkpoint's")
+    for (path, leaf), key in zip(restored.items(), keys):
+        if not (torch.equal(leaf, saved[path]) and np.array_equal(
+                leaf.numpy(), on_disk[key])):
+            raise AssertionError(f"[train] restored {key} differs from the "
+                                 "checkpoint")
+    if int(restores[0]["state"].step) != TRAIN["ckpt_every"]:
+        raise AssertionError("[train] restored the wrong step")
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"[train] losses not finite and falling: "
+                             f"first five {first}, last five {last}")
+    k = max(len(losses) // 8, 1)
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}; trainer built in "
+        f"{build_s:.2f} s; {result['steps']} steps of {TRAIN['batch']} x "
+        f"{TRAIN['seq_len']} in {result['wall_s']:.2f} s (gate, "
+        f"checkpoints and the restore included); admitted "
+        f"{result['admitted']}, rejected {result['rejected']} (segments "
+        f"{[e['segment'] for e in gates if not e['admitted']]}, as the CPU "
+        f"gate), tuples ratio {[round(e['tuples_ratio'], 4) for e in gates]}"
+        f"; kernel 1 launches {launches}; restarts {result['restarts']}")
+    log(f"[train] loss curve {' '.join(f'{x:.3f}' for x in losses[::k])}; "
+        f"mean of the first five {first:.4f}, of the last five {last:.4f}; "
+        f"checkpoint saves "
+        + ", ".join(f"step {x['step']} {x['s']:.2f} s" for x in saves)
+        + f"; "
+        f"restore of step {TRAIN['ckpt_every']} at step {TRAIN_FAIL_AT} "
+        f"{restores[0]['s']:.2f} s, equal bit for bit to the saved state "
+        f"and the file ({len(keys)} arrays)")
+
+    state = result["state"]
+    batch = {k: v.to(device) for k, v in token_batches(
+        cfg, 1, (TRAIN["batch"], TRAIN["seq_len"]), seed=1)[0].items()}
+
+    def one_step():
+        trainer.step_fn(state, batch)
+
+    sync(device)
+    state_mib = sum(t.numel() * t.element_size()
+                    for t in leaves(state)) / 2**20
+    resident = (torch.cuda.memory_allocated() / 2**20
+                if torch.device(device).type == "cuda" else None)
+    reset_peak(device)
+    t0 = time.perf_counter()
+    step_ms = median_ms(one_step, TRAIN_TIME_REPS, device)
+    peak = peak_mib(device)
+    t1 = time.perf_counter()
+    n_ops = count_aten_ops(one_step)
+    t2 = time.perf_counter()
+    busy = decode_busy_share(one_step, device)
+    secs = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+    tokens = TRAIN["batch"] * TRAIN["seq_len"]
+    log(f"[train] {card}: a train step of {TRAIN['batch']} x "
+        f"{TRAIN['seq_len']} {step_ms:.3f} ms median of "
+        f"{TRAIN_TIME_REPS} ({tokens / step_ms * 1e3:.0f} tokens/s); "
+        f"{n_ops} aten ops a step; device busy "
+        f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} of the "
+        f"wall over {BUSY_STEPS} profiled steps; peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.1f} MiB'} "
+        f"(the trainer's run: "
+        f"{'not measured' if run_peak is None else f'{run_peak:.1f} MiB'}"
+        f"; the state, params + mu + nu, {state_mib:.1f} MiB; allocated "
+        f"before a step "
+        f"{'not measured' if resident is None else f'{resident:.1f} MiB'}"
+        f", so a step adds "
+        f"{'not measured' if peak is None else f'{peak - resident:.1f} MiB'}"
+        f"); "
+        f"timed in {secs[0]:.1f} s, counted in {secs[1]:.1f} s, profiled in "
+        f"{secs[2]:.1f} s")
+    return dict(parity=parity, launches=launches, steps=result["steps"],
+                step_ms=step_ms, tok_per_s=tokens / step_ms * 1e3,
+                ops=n_ops, busy=busy, peak_mib=peak, run_peak_mib=run_peak,
+                state_mib=state_mib, resident_mib=resident,
+                save_s=[x["s"] for x in saves], restore_s=restores[0]["s"],
+                first=first, last=last)
+
+
 def ml_phases(card: str) -> dict:
     """The ML plane's phases in order, each with its seconds."""
     out, secs = {}, {}
@@ -3711,6 +4001,7 @@ def ml_phases(card: str) -> dict:
                      ("serve", lambda: phase_serve(card)),
                      ("ola-eval", lambda: phase_ola_eval(card)),
                      ("ingest", phase_ingest),
+                     ("train", lambda: phase_train(card)),
                      ("examples", phase_examples)):
         t0 = time.perf_counter()
         out[name] = fn()
@@ -3736,6 +4027,8 @@ def main(argv=None) -> int:
                          "deployment and the multi-rank phases only")
     ap.add_argument("--ml", action="store_true",
                     help="build and the ML plane's phases only")
+    ap.add_argument("--train", action="store_true",
+                    help="build and the training phase only")
     args = ap.parse_args(argv)
     kernels_only = args.kernels
     if not torch.cuda.is_available():
@@ -3753,6 +4046,12 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
 
     phase_build()
+    if args.train:
+        t0 = time.perf_counter()
+        phase_train(card)
+        log(f"[done] --train: build and [train] passed; [train] "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     if args.ml:
         ml_phases(card)
         log("[done] --ml: build and the ML plane's phases passed")
@@ -3877,6 +4176,7 @@ def main(argv=None) -> int:
                              "spmd": [o["launches"]["slot_extract"]
                                       for o in spmd["ranks"]],
                              "ingest": ml["ingest"]["launches"],
+                             "train": ml["train"]["launches"],
                              "examples": ml["examples"]["launches"]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),

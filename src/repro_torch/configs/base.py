@@ -7,10 +7,11 @@ One :class:`ModelConfig` describes any of the 10 assigned architectures; the
 model-axis size the head padding is computed against (16 for the
 production mesh; smoke tests use 1).
 
-``remat`` and ``scan_unroll`` are kept so that ``dataclasses.asdict`` equals
-the reference's; they steer the reference's ``lax.scan`` over layers and
-have no effect in the port yet (its layers are an ``nn.ModuleList`` run in
-eager order, and it has no trainer).
+``remat`` recomputes each block in the backward pass of the model's
+functional training path (``DecoderLM.apply``), as the reference's
+``jax.checkpoint``.  ``scan_unroll`` is kept so that ``dataclasses.asdict``
+equals the reference's; it steers the reference's ``lax.scan`` over layers
+and has no effect in the port (its layers run in eager order).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ class ModelConfig:
     slstm_at: Tuple[int, ...] = ()
     # ---- distribution / numerics
     tp: int = 1                      # model-axis size padding target
-    remat: bool = True               # no effect in the port (no trainer)
+    remat: bool = True               # recompute blocks in the backward pass
     compute_dtype: str = "bfloat16"
     # the reference's lax.scan unroll for layer stacks (no effect in the port)
     scan_unroll: object = 1

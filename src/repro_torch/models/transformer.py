@@ -5,16 +5,28 @@ An ``nn.Module`` whose parameters carry the reference's tree names and
 layouts (``embedding``, ``unembed``, ``final_norm``, ``layers.<i>.ln1``,
 ``layers.<i>.attn.wq`` ...; the reference stacks the layer leaves on a
 leading ``(L, ...)`` axis, ``models/convert.py`` slices it).  Parameters
-are float32, as the reference's, and hold no gradient (the port has no
-trainer yet).  The reference casts each weight to the compute dtype at
-every use; that cast gives the same values every time, so the module keeps
-one compute-dtype copy of its weights and re-makes it only after a
-parameter changed (tracked by the parameters' version counters): at bf16
-compute, no decode step re-casts the float32 weights.
+are float32, as the reference's.
 
-As in the reference, ``forward`` ignores ``cfg.norm`` and always uses
-RMSNorm.  MoE (``num_experts > 0``) is refused: ``models/moe.py`` is not
-yet ported.
+Two paths run the same block body (``_block``):
+
+* serving (``forward``, ``loss``, ``decode_step``, ``prefill``) runs on
+  the module's own parameters without autograd.  The reference casts each
+  weight to the compute dtype at every use; that cast gives the same
+  values every time, so the module keeps one compute-dtype copy of its
+  weights and re-makes it only after a parameter changed (tracked by the
+  parameters' version counters): at bf16 compute, no decode step re-casts
+  the float32 weights.
+* training (``apply``, ``loss_fn``) is the reference's functional
+  ``forward(params, ...)``: it takes the reference's tree (float32 leaves,
+  ``layers`` leaves stacked on ``(L, ...)``; ``convert.tree_from_module``
+  / ``tree_from_reference``), casts each weight at its use so autograd
+  reaches the float32 leaves, takes the per-layer views with one
+  ``unbind(0)`` a leaf, and with ``cfg.remat`` recomputes each block in
+  the backward pass (``torch.utils.checkpoint``, the reference's
+  ``jax.checkpoint``).
+
+As in the reference, both ignore ``cfg.norm`` and always use RMSNorm.
+MoE (``num_experts > 0``) is refused: ``models/moe.py`` is not yet ported.
 """
 
 from __future__ import annotations
@@ -23,10 +35,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.tree import leaves, unflatten
 
 
 def _attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -94,6 +108,16 @@ def _tree(module: nn.Module, dtype: torch.dtype) -> dict:
     for name, child in module.named_children():
         out[name] = _tree(child, dtype)
     return out
+
+
+def unstack_layers(layers: dict) -> list[dict]:
+    """A stacked layer tree (leaves ``(L, ...)``) as one tree a layer, each
+    leaf a view of its stacked leaf (one ``unbind(0)`` a leaf: its backward
+    is a single ``stack``, where ``leaf[i]`` per layer would write a whole
+    ``(L, ...)`` gradient for each)."""
+    views = [leaf.unbind(0) for leaf in leaves(layers)]
+    return [unflatten(layers, [v[i] for v in views])
+            for i in range(len(views[0]))]
 
 
 class DecoderLM(nn.Module):
@@ -165,28 +189,62 @@ class DecoderLM(nn.Module):
             return L.swiglu_apply(lp["mlp"], h)
         return L.gelu_mlp_apply(lp["mlp"], h)
 
+    def _block(self, lp: dict, x: torch.Tensor,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+        h = L.rms_norm(x, lp["ln1"])
+        x = x + attn.full_attention(lp["attn"], self.acfg, h,
+                                    positions=positions)
+        h = L.rms_norm(x, lp["ln2"])
+        return x + self._mlp(lp, h)
+
+    def _run(self, w: dict, layers, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor], remat: bool):
+        """Embed, the blocks (one tree a layer in ``layers``), final norm
+        and unembed: (logits (B, S, V_pad), aux loss 0)."""
+        x = L.embed_apply(w, tokens).to(self.compute_dtype)
+        for lp in layers:
+            if remat:
+                x = checkpoint(self._block, lp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._block(lp, x, positions)
+        x = L.rms_norm(x, w["final_norm"])
+        logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None):
         """tokens (B, S) -> (logits (B, S, V_pad), aux loss 0)."""
         w = self.compute_params()
-        x = L.embed_apply(w, tokens).to(self.compute_dtype)
-        for lp in w["layers"]:
-            h = L.rms_norm(x, lp["ln1"])
-            x = x + attn.full_attention(lp["attn"], self.acfg, h,
-                                        positions=positions)
-            h = L.rms_norm(x, lp["ln2"])
-            x = x + self._mlp(lp, h)
-        x = L.rms_norm(x, w["final_norm"])
-        logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._run(w, w["layers"], tokens, positions, remat=False)
+
+    def _loss(self, out, labels: torch.Tensor) -> torch.Tensor:
+        logits, aux = out
+        ce = L.cross_entropy_loss(logits, labels, self.cfg.vocab_size)
+        return ce + 0.01 * aux
 
     def loss(self, batch: dict) -> torch.Tensor:
-        logits, aux = self.forward(batch["tokens"],
-                                   positions=batch.get("positions"))
-        ce = L.cross_entropy_loss(logits, batch["labels"],
-                                  self.cfg.vocab_size)
-        return ce + 0.01 * aux
+        return self._loss(self.forward(batch["tokens"],
+                                       positions=batch.get("positions")),
+                          batch["labels"])
+
+    # ------------------------------------------------ functional (train) --
+    def apply(self, params: dict, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor] = None):
+        """The reference's ``forward(params, tokens, positions)`` on a
+        stacked parameter tree, differentiable in ``params``: tokens
+        (B, S) -> (logits (B, S, V_pad), aux loss 0).  (It shadows
+        ``nn.Module.apply(fn)``, which nothing calls on this module.)"""
+        return self._run(params, unstack_layers(params["layers"]), tokens,
+                         positions, remat=self.cfg.remat)
+
+    def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
+        """The reference's ``loss(params, batch)``: mean next-token cross
+        entropy of ``apply`` (plus 0.01 x its aux loss)."""
+        return self._loss(self.apply(params, batch["tokens"],
+                                     positions=batch.get("positions")),
+                          batch["labels"])
 
     # ------------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int,

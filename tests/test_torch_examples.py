@@ -9,12 +9,17 @@
   with its tokens.  (Their random weights come from torch's generator, not
   JAX's, so their numbers are not the reference's; the model and engine
   parity tests hold those with the weights carried across.)
+* train_with_verification at ``--steps 12``: its ingest gate lines and its
+  ``steps``, ``admitted``, ``rejected`` and ``restarts`` equal the JAX
+  example's; its losses (torch's random weights) are finite and fall.
 * Without a card, every example called with its default device raises.
 """
 
 import importlib
 import importlib.util
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -22,7 +27,7 @@ import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 NAMES = ("quickstart", "serve_ola_workload", "trace_workload", "explore_ptf",
-         "ola_eval_demo", "serve_batched")
+         "ola_eval_demo", "serve_batched", "train_with_verification")
 
 
 def _port(name):
@@ -86,6 +91,30 @@ def test_serve_batched_runs(capsys):
     assert out["report"]["all_done"] and out["report"]["requests"] == 6
     assert all(len(r.out_tokens) == 12 for r in out["requests"])
     assert '"decode_steps"' in capsys.readouterr().out
+
+
+def _train_report(text):
+    """(the result JSON, the ingest gate lines) of a train report."""
+    head, rest = text.split("\ningest gate log:\n", 1)
+    gates = rest.split("\n\n", 1)[0].splitlines()
+    return json.loads(head), gates
+
+
+def test_train_with_verification_gates_like_reference(capsys, monkeypatch):
+    monkeypatch.setattr(sys, "argv", ["train_with_verification.py",
+                                      "--steps", "12"])
+    _reference("train_with_verification").main()
+    want, want_gates = _train_report(capsys.readouterr().out)
+    out = _port("train_with_verification").main(["--device", "cpu",
+                                                 "--steps", "12"])
+    got, got_gates = _train_report(capsys.readouterr().out)
+    assert got_gates == want_gates and len(got_gates) == 8
+    for k in ("steps", "admitted", "rejected", "restarts"):
+        assert got[k] == want[k], k
+    assert (got["steps"], got["admitted"], got["rejected"]) == (12, 6, 2)
+    losses = [e["loss"] for e in out["log"] if e["event"] == "step"]
+    assert len(losses) == 12 and np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3])
 
 
 @pytest.mark.parametrize("name", NAMES)

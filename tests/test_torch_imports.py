@@ -1,12 +1,16 @@
 """Import guard for the PyTorch port: ``src/repro_torch`` and
 ``chip_smoke.py`` import neither ``jax`` nor anything of the JAX package
-``repro`` (the port keeps its own copies of what it needs).  An AST walk in
+``repro`` (the port keeps its own copies of what it needs), nor
+``msgpack``, which the GPU machine lacks (the port's checkpoints write a
+JSON manifest).  An AST walk in
 the manner of ``scripts/check_obs_imports.py``: every ``import`` and
 ``from ... import`` is checked, including relative imports that climb out
 of the package."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 
@@ -16,7 +20,7 @@ PKG = os.path.join(ROOT, "src", "repro_torch")
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 def violations_in(path: str, package_depth: int) -> list[tuple[int, str]]:
@@ -53,8 +57,24 @@ def test_port_has_modules():
     for must in ("core/engine.py", "kernels/slot_extract.py",
                  "serve/ola_server.py", "sampling/permutation.py",
                  "core/groupby.py", "kernels/slot_extract_grouped.py",
-                 "kernels/chunk_agg.py", "kernels/round_stats.py"):
+                 "kernels/chunk_agg.py", "kernels/round_stats.py",
+                 "train/optimizer.py", "train/train_step.py",
+                 "train/checkpoint.py", "train/trainer.py",
+                 "distributed/fault.py", "distributed/compression.py",
+                 "examples/train_with_verification.py", "tree.py"):
         assert must in names
+
+
+def test_lower_layers_do_not_import_train():
+    """The models and gradient compression sit below the training plane:
+    importing them loads nothing of ``repro_torch.train``."""
+    code = ("import sys, repro_torch.models, repro_torch.distributed; "
+            "print([m for m in sys.modules "
+            "if m.startswith('repro_torch.train')])")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip() == "[]"
 
 
 @pytest.mark.parametrize(
@@ -68,7 +88,8 @@ def test_guard_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom repro.core import engine\n"
                    "from repro_torch.core import engine as ok\n"
-                   "from ... import x\n")
+                   "from ... import x\nimport msgpack\n")
     found = [msg for _, msg in violations_in(str(src), 1)]
     assert found == ["import jax.numpy", "from repro.core import ...",
-                     "from ... import ... (climbs out of repro_torch)"]
+                     "from ... import ... (climbs out of repro_torch)",
+                     "import msgpack"]
