@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels    # build, kernel checks and times only
     python3 chip_smoke.py --ml         # build and the ML plane's phases only
     python3 chip_smoke.py --train      # build and the training phase only
+    python3 chip_smoke.py --families   # build and the other families only
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -52,7 +53,9 @@ either is missing or any phase fails.  Phases:
                runs' float state bit for bit equal.
 6. stream deployment — the deployment's store written to disk (128 chunk
                files) and served with residency="stream" and a 1 GiB
-               decoded cache: every answer within 3·ε, slab-kernel +
+               decoded cache for its first CUT_ROUNDS rounds: every answer
+               retired by then within 3·ε and, under phase 3's plans, it
+               and the state at the cut bit for bit phase 3's, slab-kernel +
                decoded-kernel launches == rounds + mixed rounds,
                extract_parse launches == decoded fills, peak device memory
                below 512 MiB (printed beside the packed run's).
@@ -60,7 +63,8 @@ either is missing or any phase fails.  Phases:
                (8,192 wiki-like tuples, 12 chunks, 16 languages, 4 grouped
                queries) on the card and on the CPU: integer state, the
                cells' gm and the promotions identical round for round.
-8. grouped deployment — the main path of the GROUP BY slice (GROUP_TUPLES):
+8. grouped deployment — the main path of the GROUP BY slice
+               (GROUP_QUERIES queries over GROUP_DEPLOY_TUPLES tuples):
                every query retires, mean top-5 recall >= 0.9, each query's
                five largest tracked cells within 3·ε of their exact totals
                and a non-empty __other__ cell, the grouped kernel launched
@@ -109,7 +113,7 @@ either is missing or any phase fails.  Phases:
                launch, bit for bit: [rank-width].)
 14. spmd      — the packed deployment served over 2 gloo ranks x 2
                workers on the one card, each rank with its own copy of
-               the store, cut after SPMD_ROUNDS of phase 3's rounds: the
+               the store, cut after CUT_ROUNDS of phase 3's rounds: the
                state at the cut and every answer retired by then bit for
                bit phase 3's at that round, kernel 1 launches == rounds on
                each rank; per rank the ms
@@ -160,7 +164,31 @@ either is missing or any phase fails.  Phases:
                and falling; ms a step, tokens a second, aten ops a step,
                busy share, peak memory (the state's share and what a
                step adds), checkpoint save / restore seconds.
-21. examples  — the seven ``repro_torch.examples`` mains in-process on the
+21. families  — the five other model families at their published widths,
+               bf16, random weights, one at a time: mixtral-8x7b and
+               phi3.5-moe at 4 of their 32 layers (depth the only cut),
+               qwen2-vl-2b (256 patches on a 16 x 16 grid + 256 text
+               tokens), whisper-large-v3 (1,500 encoder frames),
+               zamba2-1.2b, xlstm-125m (prefill 1,024: the chunkwise
+               mLSTM): prefill ms, decode ms a step at B = 3, aten ops a
+               step, peak memory, the MoE pair's dropped-token share;
+               decode token by token == forward at float32 within the
+               reference oracle's 2e-3 (the MoE pair at 2 layers, capacity
+               factor 8; zamba2 at 12 of 38, all 38 read ungated), and
+               card == CPU within F32_TOL on the same weights at
+               FAM_PARITY_LAYERS, the MoE dispatch's integer state equal
+               (near ties counted); then
+               ``ServeEngine`` serves zamba2-1.2b in serve_batched.py's
+               shape at max_len 512: tokens a second.
+22. families-train — one reduced float32 train step of each token
+               family (mixtral, zamba2, xlstm) card == CPU within
+               TRAIN_TOL; ``Trainer`` at xlstm-125m's published widths
+               (bf16, remat) over train_with_verification.py's corpus at
+               4 x 128, one step a clean segment (6): gate decisions the
+               CPU gate's, kernel 1 launched (beside the gate's rounds),
+               losses finite; ms a step, tokens a second, aten ops a
+               step, peak memory.
+23. examples  — the seven ``repro_torch.examples`` mains in-process on the
                card at their defaults (train_with_verification at
                ``--steps 12``); quickstart's and serve_ola_workload's
                answers within 3·ε of exact; train_with_verification's gate
@@ -169,9 +197,9 @@ either is missing or any phase fails.  Phases:
 ``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
 stores and exits 0 when they pass, printing no result lines.  ``--spmd``
 runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
-pass, printing no result lines.  ``--ml`` runs phases 1 and 16-21 and
+pass, printing no result lines.  ``--ml`` runs phases 1 and 16-23 and
 exits 0 when they pass, printing no result lines; ``--train`` runs phases
-1 and 20 the same way.
+1 and 20 the same way, ``--families`` phases 1, 21 and 22.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -226,7 +254,9 @@ from repro_torch.kernels.slot_extract_grouped import (  # noqa: E402
 from repro_torch.kernels.slot_extract_stream import (  # noqa: E402
     slot_eval_decoded_cuda, slot_extract_stream_cuda)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.convert import tree_from_module  # noqa: E402
+from repro_torch.models.vlm import build_positions3  # noqa: E402
 from repro_torch.ola_ml import IngestGate, ola_eval  # noqa: E402
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
@@ -256,23 +286,36 @@ OPTIONS = dict(max_slots=8, synopsis_budget_tuples=4096)
 DECODED_CACHE_BYTES = 1 << 30       # the stream deployment's decoded cache
 STREAM_PEAK_LIMIT = 512 << 20       # its device memory must stay below this
 CACHE_CAP = 128                     # the server's synopsis cache rows per chunk
+# [stream] and [spmd] serve the deployment's first CUT_ROUNDS rounds (of
+# 5,137, all but four at B = 8; 4,982 of them are count-sel-tight's alone):
+# the answers retired by then and the state at the cut, which holds the
+# other queries' statistics, are compared with phase 3's at that round.
+# [spmd] ran 1,500 rounds until a 1,128 s proof on a slow host; [stream] ran
+# all 5,137 (123 s on the H100) until a proof overran the 1,200 s limit
+CUT_ROUNDS = 500
 # rounds of each deployment profiled: the profiler's own processing of a
 # round's ~900-1,900 launch events costs far more than the round, so few
 PROFILE_ROUNDS = 25
 
-# the grouped deployment: benchmarks/bench_workload.py's full grouped lane
-# (40 languages, 8 grouped queries, 4 slots) on wiki-like data as 64-byte
-# ASCII records in 128 uneven chunks.  The tuple count is cut from
-# 8,388,608 (PERF.md §4): every round of this workload runs at B = 8, and
-# its queries need tens to hundreds of thousands of tuples each, so the
-# round count grows with the table (scripts/rehearse_grouped.py on the CPU:
-# 8,368 rounds at 262,144 tuples, 33,768 at 1,048,576) and the full table
-# would not finish in the limit; below 262,144 tuples the late-admitted
-# queries miss 3·ε, in the reference too (ROADMAP queue 3).
+# the grouped kernels' table: benchmarks/bench_workload.py's grouped lane
+# data (40 languages) as wiki-like 64-byte ASCII records in 128 uneven
+# chunks, GROUP_TUPLES of them (cut from 8,388,608, PERF.md §4)
 GROUP_TUPLES = 262_144
 GROUP_CHUNKS = 128
 GROUP_LANGS = 40
-GROUP_QUERIES = 8
+# the grouped deployment: the first GROUP_QUERIES of that lane's eight
+# grouped queries (4 slots) over GROUP_DEPLOY_TUPLES tuples of the same
+# generator.  Every round of this workload runs at B = 8 and its queries
+# read most of the table, so the round count grows with it
+# (scripts/rehearse_grouped.py on the CPU: 8,368 rounds with all eight
+# queries at 262,144 tuples, 33,768 at 1,048,576; this phase: 1,998 with
+# four at 65,536).  All eight at 262,144 took 281 s on an H100 80GB HBM3
+# at 700 W, and the smoke then overran its 1,200 s limit.  With all
+# eight, the four admitted late miss 3·ε below 262,144 tuples, in the
+# reference too (ROADMAP queue 3), so the cut keeps the four admitted at
+# once.
+GROUP_DEPLOY_TUPLES = 65_536
+GROUP_QUERIES = 4
 GROUP_ENGINE = dict(num_workers=4, seed=7, max_groups=8)
 GROUP_OPTIONS = dict(max_slots=4, synopsis_budget_tuples=0)
 GROUP_TOP_K = 5
@@ -1085,11 +1128,11 @@ def phase_server(store, values) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     # the B of every round: the ladder rung of the budget before it
     rungs = [server.engine.budget_ladder(float(server.state.budget))]
-    cut = {}    # the state and answers after SPMD_ROUNDS rounds, for [spmd]
+    cut = {}    # the state and answers after CUT_ROUNDS rounds
 
     def on_round(srv):
         rungs.append(srv.engine.budget_ladder(float(srv.state.budget)))
-        if srv.rounds == SPMD_ROUNDS:
+        if srv.rounds == CUT_ROUNDS:
             cut.update(state=spmd_record(srv.engine, srv.state),
                        results=result_rows(srv.results))
 
@@ -2193,7 +2236,10 @@ def write_disk_store(store, directory: str) -> ChunkStore:
 def phase_stream_deployment(store, values, packed_run: dict) -> dict:
     """The deployment's eight queries on the same arrivals, served from the
     disk-backed store with residency="stream" and a 1 GiB decoded cache
-    (all 128 decoded chunks, 512 MiB, fit)."""
+    (all 128 decoded chunks, 512 MiB, fit), for its first CUT_ROUNDS
+    rounds: every answer retired by then within 3·ε and, under the packed
+    run's plans, it and the state at the cut bit for bit the packed run's
+    at that round."""
     queries = deployment_queries(values)
     arrivals = [at for _, at in poisson_workload(
         queries, ARRIVALS_PER_MODEL_S, seed=ARRIVAL_SEED)]
@@ -2234,11 +2280,12 @@ def phase_stream_deployment(store, values, packed_run: dict) -> dict:
             eng.round_data, eng.data_mode = timed_round_data, counted_mode
             reset_launches()
             t0 = time.perf_counter()
-            results = server.run()
+            results = server.run(max_rounds=CUT_ROUNDS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts()
             pf = eng.pipeline.counters()
+            state = spmd_record(eng, server.state)
         finally:
             server.close()
         peak = torch.cuda.max_memory_allocated()
@@ -2247,14 +2294,23 @@ def phase_stream_deployment(store, values, packed_run: dict) -> dict:
             for q, at in zip(queries, arrivals):
                 again.submit(q, arrival_t=at)
             profile_rounds(again, PROFILE_ROUNDS, "stream")
-    if server.truncated or len(results) != len(queries):
-        raise AssertionError("stream server run truncated")
     rounds = server.rounds
+    if not server.truncated or rounds != CUT_ROUNDS:
+        raise AssertionError(f"stream server ran {rounds} rounds, not cut "
+                             f"at {CUT_ROUNDS}")
+    cut = packed_run["cut"]
+    if not cut:
+        raise AssertionError(f"[stream] the packed run ended before round "
+                             f"{CUT_ROUNDS}")
+    packed_by_name = {p.name: p for p in packed_run["results"]}
+    by_name = {q.name: q for q in queries}
+    results = sorted(results, key=lambda r: r.qid)
     log(f"[stream] {'query':>16} {'plan':>14} {'estimate':>14} "
         f"{'dev/eps':>7} {'rounds':>6} {'seen':>8} | packed: {'plan':>14} "
         f"{'rounds':>6} {'seen':>8}")
     failures, same_plans = [], True
-    for r, p, q in zip(results, packed_run["results"], queries):
+    for r in results:
+        p, q = packed_by_name[r.name], by_name[r.name]
         ex = exact[q.name]
         dev = abs(r.estimate - ex) / abs(ex)
         if not (np.isfinite(r.estimate) and dev <= 3 * q.epsilon):
@@ -2264,7 +2320,9 @@ def phase_stream_deployment(store, values, packed_run: dict) -> dict:
             f"{dev / q.epsilon:7.3f} {r.rounds_resident:6d} "
             f"{r.tuples_seen:8d} | packed: {p.plan:>14} "
             f"{p.rounds_resident:6d} {p.tuples_seen:8d}")
-    log(f"[stream] rounds {rounds} (packed {packed_run['rounds']}); "
+    log(f"[stream] rounds {rounds} (cut; the packed run "
+        f"{packed_run['rounds']}), {len(results)} of {len(queries)} answers "
+        f"retired; "
         f"variants {modes}; launches {launches}; decoded hits "
         f"{pf['decoded_hits']}, fills {pf['decoded_fills']}, "
         f"extract_tuples_avoided {pf['extract_tuples_avoided']}, chunk "
@@ -2299,18 +2357,11 @@ def phase_stream_deployment(store, values, packed_run: dict) -> dict:
         raise AssertionError(f"stream peak device memory {peak} >= "
                              f"{STREAM_PEAK_LIMIT}")
     if same_plans:
-        for r, p in zip(results, packed_run["results"]):
-            if (r.rounds_resident, r.tuples_seen, r.seeded_tuples,
-                    r.decision, r.estimate) != (
-                    p.rounds_resident, p.tuples_seen, p.seeded_tuples,
-                    p.decision, p.estimate):
-                raise AssertionError(f"{r.name}: stream outcome differs from "
-                                     "packed under the same plans")
-        if rounds != packed_run["rounds"]:
-            raise AssertionError("stream rounds differ from packed under "
-                                 "the same plans")
-        log("[stream] every plan as in the packed run: rounds, per-query "
-            "outcomes and estimates identical")
+        same_results(result_rows(results), cut["results"], "[stream]")
+        same_trace([state], [cut["state"]], "[stream]")
+        log(f"[stream] every plan as in the packed run: the "
+            f"{len(results)} answers retired by round {rounds} and the state "
+            f"at the cut bit for bit the packed run's")
     else:
         log("[stream] plans differ from the packed run (the decoded cache "
             "prices a cached scan cheaper): outcomes reported above")
@@ -2424,10 +2475,6 @@ SPMD_RANKS = (1, 2, 4)
 SPMD_JOIN_S = 600.0           # a rank group's time limit
 SPMD_PG_TIMEOUT_S = 120
 SPMD_WORKERS = 8
-# [spmd] serves the deployment's first SPMD_ROUNDS rounds (of 5,137, all
-# but four at B = 8): five of its eight queries retire by then, and the
-# state compared at the cut holds the other three's statistics
-SPMD_ROUNDS = 1500
 COEF8 = tuple(1.0 / (k + 1) for k in range(8))
 
 
@@ -2745,7 +2792,7 @@ def phase_spmd_parity(device: str = "cuda") -> dict:
 def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
                          out_dir: str, store_dir: str, thr: float, arrivals,
                          device: str) -> None:
-    """One rank of [spmd]: the packed deployment's first SPMD_ROUNDS
+    """One rank of [spmd]: the packed deployment's first CUT_ROUNDS
     rounds served over the mesh; the first PROFILE_ROUNDS under the
     profiler (device idle share), the rest timed; the state at the cut,
     collective seconds, launches and peak memory."""
@@ -2793,7 +2840,7 @@ def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
         first = server.rounds
         spent.update(s=0.0, n=0)
         t0 = time.perf_counter()
-        results = server.run(max_rounds=SPMD_ROUNDS)
+        results = server.run(max_rounds=CUT_ROUNDS)
         sync()
         wall = time.perf_counter() - t0
         out = dict(
@@ -2814,7 +2861,7 @@ def spmd_deployment_rank(rank: int, ranks: int, init_file: str,
 
 def phase_spmd(store, values, packed_run: dict, card: str,
                device: str = "cuda") -> dict:
-    """The packed deployment's first SPMD_ROUNDS rounds served with
+    """The packed deployment's first CUT_ROUNDS rounds served with
     ServerOptions(mesh=...) over 2 gloo ranks x 2 workers on the one card,
     each rank holding its own copy of the 2 GiB store: the state after the
     cut and every answer retired by then bit for bit the single-device
@@ -2837,13 +2884,13 @@ def phase_spmd(store, values, packed_run: dict, card: str,
     cut = packed_run["cut"]
     if not cut:
         raise AssertionError(f"[spmd] the single-device run ended before "
-                             f"round {SPMD_ROUNDS}")
+                             f"round {CUT_ROUNDS}")
     single_ms = packed_run["wall_s"] / packed_run["rounds"] * 1e3
     for rank, o in enumerate(outs):
         where = f"[spmd] rank {rank}"
-        if not o["truncated"] or o["rounds"] != SPMD_ROUNDS:
+        if not o["truncated"] or o["rounds"] != CUT_ROUNDS:
             raise AssertionError(f"{where}: {o['rounds']} rounds, not cut "
-                                 f"at {SPMD_ROUNDS}")
+                                 f"at {CUT_ROUNDS}")
         same_results(o["results"], cut["results"], where)
         same_trace([o["state"]], [cut["state"]], where)
         if device == "cuda" and (o["launches"]["slot_extract"] != o["rounds"]
@@ -3994,6 +4041,424 @@ def phase_train(card: str, device: str = "cuda", cfg=None) -> dict:
                 first=first, last=last)
 
 
+# ------------------------------------------------------ other families ----
+# The five families beyond the dense decoder at their published widths
+# (configs/*.py), bf16, random weights from ML_SEED on the card's
+# generator, one model at a time, each released before the next.  The MoE
+# pair is cut in depth only, to 4 of its 32 layers (1.45 B and 1.30 B
+# parameters a layer: ~36 and ~33 GB at 6 bytes a parameter).
+FAMILIES = (("mixtral-8x7b", 4), ("phi3.5-moe-42b-a6.6b", 4),
+            ("qwen2-vl-2b", None), ("whisper-large-v3", None),
+            ("zamba2-1.2b", None), ("xlstm-125m", None))
+FAM_PREFILL = 512            # prefill positions at B = 1 (the VLM: 256
+                             # patches on a 16 x 16 grid + 256 text tokens)
+FAM_ENC_FRAMES = 1500        # Whisper's published encoder length
+FAM_XLSTM_PREFILL = 1024     # > 2 x chunk 256: the chunkwise mLSTM runs
+FAM_DECODE_B = 3
+FAM_DECODE_STEPS = 10        # decode steps timed (median)
+FAM_CHECK_SHAPE = (2, 16)    # decode vs forward and card vs CPU tokens
+FAM_ORACLE_TOL = 2e-3        # the reference oracle's rtol = atol
+# decode vs forward at float32 runs every layer but the MoE pair's (2,
+# capacity factor 8: no drops in either dispatch) and the hybrid's (12 of
+# 38: two shared-attention sites; float32 rounding grows with depth, and
+# at full width the reference's own float32 decode reaches the oracle's
+# tolerance at 12 layers, tools/decode_drift.py; all 38 are read, not
+# gated); card vs CPU at float32 runs one MoE layer, 2 of the VLM and the
+# encoder-decoder, the hybrid's first 6 (its first shared-attention site)
+# and all 12 of xlstm-125m (its sLSTM blocks sit at 5 and 11)
+FAM_ORACLE_LAYERS = {"moe": 2, "hybrid": 12}
+FAM_PARITY_LAYERS = {"moe": 1, "vlm": 2, "encdec": 2, "hybrid": 6}
+NEAR_TIE = 1e-6              # a top-(k+1) probability gap counted as a tie
+FAM_SERVE_ARCH = "zamba2-1.2b"
+
+
+def fam_config(arch: str, layers=None, dtype=None, **kw):
+    cfg = get_config(arch)
+    if layers:
+        kw["num_layers"] = layers
+    if dtype:
+        kw["compute_dtype"] = dtype
+    return dataclasses.replace(cfg, **kw)
+
+
+@contextlib.contextmanager
+def recorded_dispatch():
+    """Every MoE dispatch run inside: [(probs, (gate, ids, pos, keep))]."""
+    rec = []
+    real = moe_mod.moe_dispatch
+
+    def spy(probs, k, cap):
+        out = real(probs, k, cap)
+        rec.append((probs, out))
+        return out
+
+    moe_mod.moe_dispatch = spy
+    try:
+        yield rec
+    finally:
+        moe_mod.moe_dispatch = real
+
+
+def near_ties(rec, k: int) -> int:
+    """Tokens whose top k+1 router probabilities hold two within
+    NEAR_TIE (a choice that float rounding could flip)."""
+    n = 0
+    for probs, _ in rec:
+        top = torch.sort(probs, -1, descending=True).values[..., :k + 1]
+        n += int(((top[..., :-1] - top[..., 1:]) < NEAR_TIE).any(-1).sum())
+    return n
+
+
+def fam_batch(cfg, b: int, s: int, device, seed: int = 0,
+              frames: int = 64) -> dict:
+    """A batch of the family's shape with ``s`` token positions: tokens;
+    the VLM's patch embeddings (half of ``s``, on a square grid) and
+    M-RoPE ids; the encoder-decoder's ``frames`` frame embeddings."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, cfg.compute_dtype)
+    out = {}
+    if cfg.family == "vlm":
+        sv = s // 2
+        out["vis_embeds"] = torch.as_tensor(
+            rng.normal(size=(b, sv, cfg.d_model)), device=device).to(dt)
+        out["positions3"] = torch.as_tensor(
+            build_positions3(b, sv, s - sv), device=device)
+        s -= sv
+    if cfg.family == "encdec":
+        out["enc_embeds"] = torch.as_tensor(
+            rng.normal(size=(b, frames, cfg.d_model)), device=device).to(dt)
+    out["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                    device=device)
+    return out
+
+
+def fam_logits(model, batch: dict) -> torch.Tensor:
+    """The full-sequence forward's logits of any family."""
+    if model.cfg.family in ("vlm", "encdec"):
+        out = model.forward(batch)
+    else:
+        out = model.forward(batch["tokens"])
+    return out[0] if isinstance(out, tuple) else out
+
+
+def fam_decoder(model, batch: dict, b: int, max_len: int, dtype=None):
+    """A decode-step function ``step(tokens, pos) -> logits`` over a fresh
+    cache of ``dtype`` (the family's default when None; the
+    encoder-decoder's over ``batch``'s encoder output)."""
+    cache = model.init_cache(b, max_len,
+                             **({} if dtype is None else {"dtype": dtype}))
+    if model.cfg.family == "encdec":
+        ckv = model.precompute_cross(model.encode(batch["enc_embeds"]))
+        return lambda tok, pos: model.decode_step(cache, tok, pos, ckv)[0]
+    return lambda tok, pos: model.decode_step(cache, tok, pos)[0]
+
+
+def fam_oracle(arch: str, device, layers=None) -> dict:
+    """The reference's decode == forward oracle at full width and float32
+    compute: teacher-forced decode over FAM_CHECK_SHAPE's tokens against
+    the full-sequence forward, ``ratio`` the max of |decode - forward| /
+    (atol + rtol · |forward|), <= 1 passes.  The VLM decodes text only:
+    its forward gets no patches and all three M-RoPE streams at the
+    token's position.  ``layers`` overrides FAM_ORACLE_LAYERS."""
+    cfg = get_config(arch)
+    cfg = fam_config(arch, layers or FAM_ORACLE_LAYERS.get(cfg.family),
+                     "float32",
+                     **({"capacity_factor": 8.0} if cfg.family == "moe"
+                        else {}))
+    b, s = FAM_CHECK_SHAPE
+    batch = fam_batch(cfg, b, s, device, frames=FAM_ENC_FRAMES)
+    if cfg.family == "vlm":
+        batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (b, s)), device=device),
+            "vis_embeds": torch.zeros(b, 0, cfg.d_model, device=device),
+            "positions3": torch.arange(s, device=device).expand(3, b, s)}
+    toks = batch["tokens"]
+    model = build_model(cfg, device=device, seed=ML_SEED)
+    if cfg.family == "encdec":
+        full = model.decode_full(toks, model.encode(batch["enc_embeds"]))
+    else:
+        full = fam_logits(model, batch)
+    step = fam_decoder(model, batch, b, 64, torch.float32)
+    dec = torch.stack([step(toks[:, t:t + 1], torch.full(
+        (b,), t, dtype=torch.int32, device=device))[:, 0]
+        for t in range(s)], 1)
+    diff = (dec - full).abs()
+    return dict(layers=cfg.num_layers,
+                ratio=float((diff / (FAM_ORACLE_TOL * (1 + full.abs()))).max()),
+                diff=float(diff.max()), scale=float(full.abs().max()))
+
+
+def fam_parity(arch: str, device) -> dict:
+    """Card against CPU at float32 (TF32 off), full width, the depth of
+    FAM_PARITY_LAYERS: the same weights (the card's, copied into a CPU
+    module built on the meta device), logits within F32_TOL; the MoE
+    pair's dispatch (expert ids, positions, kept mask) equal on both."""
+    cfg = get_config(arch)
+    cfg = fam_config(arch, FAM_PARITY_LAYERS.get(cfg.family), "float32")
+    card = build_model(cfg, device=device, seed=ML_SEED)
+    twin = build_model(cfg, device="meta")
+    twin.to_empty(device="cpu")
+    twin.load_state_dict(card.state_dict())
+    b, s = FAM_CHECK_SHAPE
+    batch = fam_batch(cfg, b, s, "cpu")
+    with recorded_dispatch() as rec_card:
+        got = fam_logits(card, {k: v.to(device) for k, v in batch.items()})
+    with recorded_dispatch() as rec_cpu:
+        want = fam_logits(twin, batch)
+    out = dict(layers=cfg.num_layers, rel=rel_diff(got, want))
+    if cfg.family == "moe":
+        same = len(rec_card) == len(rec_cpu) == cfg.num_layers and all(
+            torch.equal(x.cpu(), y) for (_, a), (_, c) in zip(rec_card, rec_cpu)
+            for x, y in zip(a[1:], c[1:]))
+        out.update(dispatch_equal=same,
+                   near_ties=near_ties(rec_cpu, cfg.top_k),
+                   tokens=sum(p.shape[0] * p.shape[1] for p, _ in rec_cpu))
+    return out
+
+
+def fam_timing(arch: str, layers, device) -> dict:
+    """The bf16 model at full width: prefill ms (median of 2) of its
+    FAM_PREFILL-shaped input at B = 1, decode ms a step at B = 3 (median of
+    FAM_DECODE_STEPS), aten ops a decode step, peak device memory, the
+    MoE pair's dropped-token share in the prefill."""
+    cfg = fam_config(arch, layers)
+    reset_peak(device)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=device, seed=ML_SEED)
+    model.compute_params()
+    sync(device)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    s = FAM_XLSTM_PREFILL if cfg.family == "xlstm" else FAM_PREFILL
+    batch = fam_batch(cfg, 1, s, device, frames=FAM_ENC_FRAMES)
+    with recorded_dispatch() as rec:
+        logits = fam_logits(model, batch)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"[families] {arch}: prefill logits not finite")
+    drop = None
+    if rec:
+        kept = sum(int(o[3].sum()) for _, o in rec)
+        total = sum(o[3].numel() for _, o in rec)
+        drop = 1 - kept / total
+    del logits, rec
+    prefill = median_ms(lambda: fam_logits(model, batch), 2, device)
+    step = fam_decoder(model, fam_batch(cfg, FAM_DECODE_B, 8, device,
+                                        frames=FAM_ENC_FRAMES),
+                       FAM_DECODE_B, 512)
+    tok = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (FAM_DECODE_B, 1)), device=device)
+    pos = [0]
+
+    def one_step():
+        step(tok, torch.full((FAM_DECODE_B,), pos[0], dtype=torch.int32,
+                             device=device))
+        pos[0] += 1
+
+    decode = median_ms(one_step, FAM_DECODE_STEPS, device)
+    n_ops = count_aten_ops(one_step)
+    peak = peak_mib(device)
+    del model, step, batch
+    return dict(layers=cfg.num_layers, params=n_params, build_s=build_s,
+                prefill_s=s, prefill_ms=prefill, decode_ms=decode,
+                decode_ops=n_ops, peak_mib=peak, drop=drop)
+
+
+def release(device) -> None:
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_families(card: str, device: str = "cuda") -> dict:
+    """Each family of FAMILIES: ``fam_timing`` (bf16), ``fam_oracle``
+    (float32, within the oracle's tolerance) and ``fam_parity`` (float32,
+    within F32_TOL, the MoE dispatch equal); then ``ServeEngine`` serves
+    FAM_SERVE_ARCH at full width in serve_batched.py's shape (SERVE)."""
+    out = {}
+    for arch, layers in FAMILIES:
+        t0 = time.perf_counter()
+        r = fam_timing(arch, layers, device)
+        release(device)
+        r["oracle"] = fam_oracle(arch, device)
+        release(device)
+        r["parity"] = fam_parity(arch, device)
+        release(device)
+        r["s"] = time.perf_counter() - t0
+        out[arch] = r
+        par, o = r["parity"], r["oracle"]
+        moe = ""
+        if "dispatch_equal" in par:
+            moe = (f"; dispatch card == CPU {par['dispatch_equal']} over "
+                   f"{par['tokens']} tokens ({par['near_ties']} near ties); "
+                   f"dropped-token share in the prefill "
+                   f"{100 * r['drop']:.2f}%")
+        peak = r["peak_mib"]
+        log(f"[families] {card}: {arch} ({r['layers']} layers, "
+            f"{r['params'] / 1e9:.3f} B float32 parameters and their bf16 "
+            f"copy built in {r['build_s']:.2f} s): prefill of "
+            f"{r['prefill_s']} positions {r['prefill_ms']:.3f} ms median; "
+            f"decode at B = {FAM_DECODE_B} {r['decode_ms']:.3f} ms a step "
+            f"median, {r['decode_ops']} aten ops a step; peak device memory "
+            f"{'not measured' if peak is None else f'{peak:.1f} MiB'}; "
+            f"decode vs forward at {o['layers']} layers, float32: "
+            f"{o['ratio']:.3f} of the oracle's tolerance "
+            f"({FAM_ORACLE_TOL:.0e}), max |diff| "
+            f"{o['diff']:.3e} of max |logit| {o['scale']:.2f}; card vs CPU "
+            f"at {par['layers']} layers, float32, logits {par['rel']:.3e} "
+            f"(tolerance {F32_TOL:.0e}){moe}; {r['s']:.1f} s")
+        if not (o["ratio"] <= 1.0
+                and par["rel"] <= F32_TOL
+                and par.get("dispatch_equal", True)):
+            raise AssertionError(f"[families] {arch}: decode vs forward "
+                                 f"{o}, card vs CPU {par}")
+        full_depth = get_config(arch).num_layers
+        if o["layers"] < full_depth and layers is None:
+            deep = fam_oracle(arch, device, full_depth)
+            release(device)
+            out[arch]["oracle_full_depth"] = deep
+            log(f"[families] {card}: {arch} decode vs forward at all "
+                f"{full_depth} layers, float32 (not gated): {deep['ratio']:.3f}"
+                f" of the oracle's tolerance, max |diff| {deep['diff']:.3e} "
+                f"of max |logit| {deep['scale']:.2f}")
+    cfg = get_config(FAM_SERVE_ARCH)
+    reset_peak(device)
+    eng = ServeEngine(cfg, batch_slots=SERVE["slots"],
+                      max_len=SERVE["max_len"], seed=ML_SEED, device=device)
+    reqs = serve_requests(eng, cfg)
+    sync(device)
+    t0 = time.perf_counter()
+    steps = eng.run()
+    sync(device)
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out_tokens) == SERVE["max_new"]
+               for r in reqs):
+        raise AssertionError("[families] ServeEngine left a request")
+    n_tok = SERVE["requests"] * SERVE["max_new"]
+    calls = steps + SERVE["requests"] * SERVE["prompt"]
+    peak = peak_mib(device)
+    log(f"[families] {card}: ServeEngine {cfg.name} ({cfg.num_layers} "
+        f"layers) {SERVE['requests']} requests x {SERVE['max_new']} tokens, "
+        f"{SERVE['slots']} slots, max_len {SERVE['max_len']}: {steps} decode "
+        f"steps + {calls - steps} fill steps in {wall:.3f} s "
+        f"({wall / calls * 1e3:.3f} ms a step), {n_tok / wall:.1f} generated "
+        f"tokens/s; peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.1f} MiB'}")
+    del eng
+    release(device)
+    out["serve"] = dict(steps=steps, wall_s=wall, tok_per_s=n_tok / wall,
+                        ms_per_step=wall / calls * 1e3, peak_mib=peak)
+    return out
+
+
+# the token families' training: xlstm-125m at full width (12 layers,
+# d_model 768, 4 heads, vocab 50,304, tied, bf16, remat) through Trainer on
+# train_with_verification.py's corpus at its batch, one step a clean
+# segment (6 steps); card vs CPU one step of each token family, reduced,
+# float32
+FAM_TRAIN_ARCH = "xlstm-125m"
+FAM_TRAIN = dict(steps_per_segment=1, batch=4, seq_len=128, max_steps=6)
+FAM_TRAIN_PARITY = ("mixtral-8x7b", "zamba2-1.2b", "xlstm-125m")
+FAM_TRAIN_REPS = 2
+
+
+def fam_train_parity(device) -> dict:
+    """One train step of each token family's reduced config at float32
+    from the same torch-initialised tree on the card and the CPU: loss and
+    grad_norm within TRAIN_TOL."""
+    out = {}
+    for arch in FAM_TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  compute_dtype="float32")
+        model = build_model(cfg, device="cpu", seed=ML_SEED)
+        tree = tree_from_module(model)
+        step = make_train_step(model.loss_fn, AdamWConfig(warmup_steps=2))
+        batch = token_batches(cfg, 1, TRAIN_PARITY_SHAPE)[0]
+        got = {}
+        for dev in (device, "cpu"):
+            state = init_train_state(tree_map(lambda t: t.to(dev), tree))
+            _, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+            got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got[device], got["cpu"]))
+        out[arch] = dict(loss=got["cpu"][0], rel=rel)
+        if not rel <= TRAIN_TOL:
+            raise AssertionError(f"[families-train] {arch}: card {got[device]}"
+                                 f" vs CPU {got['cpu']}")
+    return out
+
+
+def phase_families_train(card: str, device: str = "cuda") -> dict:
+    """``fam_train_parity``, then ``Trainer`` at FAM_TRAIN_ARCH's full width
+    over the example's corpus: every gate decision the CPU gate's, kernel 1
+    launched by the gate (beside the gate's engine rounds), FAM_TRAIN's
+    steps with finite losses; ms a step (median), tokens/s, aten ops a
+    step, peak device memory."""
+    parity = fam_train_parity(device)
+    cfg = get_config(FAM_TRAIN_ARCH)
+    corpus = SyntheticCorpus(vocab=cfg.vocab_size, **TRAIN_CORPUS)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainerConfig(**FAM_TRAIN), device=device)
+    build_s = time.perf_counter() - t0
+    decisions = []
+    real_check = trainer.gate.check
+
+    def recorded_check(store):
+        decisions.append(real_check(store))
+        return decisions[-1]
+
+    trainer.gate.check = recorded_check
+    reset_launches()
+    reset_peak(device)
+    result = trainer.run(corpus)
+    sync(device)
+    launches = launch_counts()["slot_extract"]
+    rounds = sum(r.rounds for d in decisions for r in d.results)
+    run_peak = peak_mib(device)
+    gates = check_gates(trainer.log, corpus, trainer.tcfg.gate_epsilon,
+                        "families-train")
+    losses = [e["loss"] for e in trainer.log if e["event"] == "step"]
+    if result["steps"] != FAM_TRAIN["max_steps"] or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"[families-train] {result['steps']} steps, "
+                             f"losses {losses}")
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError("[families-train] kernel 1 never launched")
+    state = result["state"]
+    batch = {k: v.to(device) for k, v in token_batches(
+        cfg, 1, (FAM_TRAIN["batch"], FAM_TRAIN["seq_len"]), seed=1)[0].items()}
+
+    def one_step():
+        trainer.step_fn(state, batch)
+
+    reset_peak(device)
+    step_ms = median_ms(one_step, FAM_TRAIN_REPS, device)
+    peak = peak_mib(device)
+    n_ops = count_aten_ops(one_step)
+    tokens = FAM_TRAIN["batch"] * FAM_TRAIN["seq_len"]
+    log(f"[families-train] card vs CPU, one reduced float32 step: "
+        + ", ".join(f"{a} loss {v['loss']:.5f} rel {v['rel']:.3e}"
+                    for a, v in parity.items())
+        + f" (tolerance {TRAIN_TOL:.0e})")
+    log(f"[families-train] {card}: {cfg.name} ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.compute_dtype}"
+        f", remat {cfg.remat}); trainer built in {build_s:.2f} s; "
+        f"{result['steps']} steps of {FAM_TRAIN['batch']} x "
+        f"{FAM_TRAIN['seq_len']} in {result['wall_s']:.2f} s (the gate "
+        f"included), admitted {result['admitted']}, rejected "
+        f"{result['rejected']} (segments "
+        f"{[e['segment'] for e in gates if not e['admitted']]}, as the CPU "
+        f"gate); kernel 1 launches {launches} in the gate's {rounds} engine "
+        f"rounds; losses {' '.join(f'{x:.3f}' for x in losses)}; a step "
+        f"{step_ms:.3f} ms median of {FAM_TRAIN_REPS} "
+        f"({tokens / step_ms * 1e3:.0f} tokens/s), {n_ops} aten ops a step; "
+        f"peak device memory "
+        f"{'not measured' if peak is None else f'{peak:.1f} MiB'} (the "
+        f"run: {'not measured' if run_peak is None else f'{run_peak:.1f} MiB'})")
+    return dict(parity=parity, launches=launches, rounds=rounds,
+                steps=result["steps"], step_ms=step_ms,
+                tok_per_s=tokens / step_ms * 1e3, ops=n_ops, peak_mib=peak,
+                run_peak_mib=run_peak)
+
+
 def ml_phases(card: str) -> dict:
     """The ML plane's phases in order, each with its seconds."""
     out, secs = {}, {}
@@ -4002,6 +4467,8 @@ def ml_phases(card: str) -> dict:
                      ("ola-eval", lambda: phase_ola_eval(card)),
                      ("ingest", phase_ingest),
                      ("train", lambda: phase_train(card)),
+                     ("families", lambda: phase_families(card)),
+                     ("families-train", lambda: phase_families_train(card)),
                      ("examples", phase_examples)):
         t0 = time.perf_counter()
         out[name] = fn()
@@ -4029,6 +4496,8 @@ def main(argv=None) -> int:
                     help="build and the ML plane's phases only")
     ap.add_argument("--train", action="store_true",
                     help="build and the training phase only")
+    ap.add_argument("--families", action="store_true",
+                    help="build and the other model families' phases only")
     args = ap.parse_args(argv)
     kernels_only = args.kernels
     if not torch.cuda.is_available():
@@ -4052,6 +4521,14 @@ def main(argv=None) -> int:
         log(f"[done] --train: build and [train] passed; [train] "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    if args.families:
+        t0 = time.perf_counter()
+        phase_families(card)
+        t1 = time.perf_counter()
+        phase_families_train(card)
+        log(f"[done] --families: build, [families] ({t1 - t0:.1f} s) and "
+            f"[families-train] ({time.perf_counter() - t1:.1f} s) passed")
+        return 0
     if args.ml:
         ml_phases(card)
         log("[done] --ml: build and the ML plane's phases passed")
@@ -4064,10 +4541,10 @@ def main(argv=None) -> int:
         f"records ({store.num_tuples * store.codec.record_bytes / 2**30:.2f}"
         f" GiB) generated and encoded in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    gvalues, gstore = build_wiki_store(GROUP_TUPLES, GROUP_CHUNKS,
-                                       GROUP_LANGS)
-    log(f"[data] grouped deployment: {gstore.num_tuples} wiki-like tuples "
-        f"({GROUP_LANGS} languages) x 4 columns, {gstore.num_chunks} uneven "
+    _, gstore = build_wiki_store(GROUP_TUPLES, GROUP_CHUNKS, GROUP_LANGS)
+    log(f"[data] grouped kernels' table: {gstore.num_tuples} wiki-like "
+        f"tuples ({GROUP_LANGS} languages) x 4 columns, {gstore.num_chunks} "
+        f"uneven "
         f"chunks, {gstore.codec.record_bytes}-byte records "
         f"({gstore.num_tuples * gstore.codec.record_bytes / 2**20:.1f} MiB) "
         f"in {time.perf_counter() - t0:.1f} s")
@@ -4124,7 +4601,8 @@ def main(argv=None) -> int:
     spmd_s = time.perf_counter() - t0
     rows_run = {k: v for k, v in rows.items() if k not in ("plan", "sizes_t")}
     del rows
-    packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s")}
+    packed_run = {k: srv[k] for k in ("results", "rounds", "peak", "wall_s",
+                                      "cut")}
     del srv
     # the serving-plane phases' servers sit in reference cycles (metrics
     # gauges close over them) holding the packed store: collect them before
@@ -4136,10 +4614,15 @@ def main(argv=None) -> int:
     del values
     torch.cuda.empty_cache()
     phase_grouped_parity()
-    gdep = phase_grouped_deployment(gvalues, gstore)
-    with run_grouped_server(gstore, "cuda") as server:
+    del gstore, gpacked
+    dvalues, dstore = build_wiki_store(GROUP_DEPLOY_TUPLES, GROUP_CHUNKS,
+                                       GROUP_LANGS)
+    log(f"[data] grouped deployment: {dstore.num_tuples} wiki-like tuples, "
+        f"{dstore.num_chunks} uneven chunks, {GROUP_QUERIES} grouped queries")
+    gdep = phase_grouped_deployment(dvalues, dstore)
+    with run_grouped_server(dstore, "cuda") as server:
         profile_rounds(server, PROFILE_ROUNDS, "grouped")
-    del gstore, gvalues, gpacked
+    del dstore, dvalues
     gc.collect()
     torch.cuda.empty_cache()
     ml = ml_phases(card)
@@ -4177,6 +4660,8 @@ def main(argv=None) -> int:
                                       for o in spmd["ranks"]],
                              "ingest": ml["ingest"]["launches"],
                              "train": ml["train"]["launches"],
+                             "families-train":
+                                 ml["families-train"]["launches"],
                              "examples": ml["examples"]["launches"]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),

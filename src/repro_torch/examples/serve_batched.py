@@ -1,9 +1,10 @@
-"""Batched serving demo: continuous batching over a decode-capable arch.
+"""Batched serving demo: continuous batching over any decode-capable arch.
 
-    python -m repro_torch.examples.serve_batched [--arch qwen3-0.6b] [--device cpu]
+    python -m repro_torch.examples.serve_batched [--arch zamba2-1.2b] [--device cpu]
 
-Runs reduced-config batched decode with slot refill through the KV cache
-(the dense family is ported; other families are refused by name).
+Runs reduced-config batched decode with slot refill: exercises the KV-cache
+ring buffers (SWA), SSM states (hybrid) and matrix memories (xLSTM) through
+the same engine.
 """
 
 import argparse

@@ -1,8 +1,7 @@
-"""Model zoo on PyTorch (counterpart of ``repro.models``): the dense
-decoder-only family (``DecoderLM``) with the reference's parameter names
-and layouts, random weights from a seed, and ``convert.py`` to carry the
-reference's weights across.  Other families are refused by name until
-they are ported."""
+"""Model zoo on PyTorch (counterpart of ``repro.models``): the six
+families (dense and MoE decoder-only, VLM, encoder-decoder, Mamba2 hybrid,
+xLSTM) with the reference's parameter names and layouts, random weights
+from a seed, and ``convert.py`` to carry the reference's weights across."""
 
 from repro_torch.models.model_zoo import build_model
 

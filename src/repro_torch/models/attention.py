@@ -1,6 +1,6 @@
-"""Attention: GQA/MQA/MHA, causal / sliding window, qk-norm, QKV bias —
-full-sequence and cached-decode paths (counterpart of
-``repro.models.attention``, the decoder-only subset).
+"""Attention: GQA/MQA/MHA, causal / bidirectional / cross / sliding
+window, qk-norm, QKV bias, M-RoPE — full-sequence and cached-decode paths
+(counterpart of ``repro.models.attention``).
 
 Plain PyTorch ops in the reference's order: scores are computed in the
 compute dtype and scaled by 1/sqrt(D), masked with -1e9, soft-maxed in
@@ -27,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import apply_rope, linear, pad_to, rms_norm
+from repro_torch.models.layers import (
+    apply_mrope, apply_rope, linear, pad_to, rms_norm)
 
 NEG_INF = -1e9
 
@@ -86,10 +87,12 @@ def mask_padded_heads(params: dict, cfg: AttnConfig) -> dict:
     return params
 
 
-def _project_qkv(p: dict, cfg: AttnConfig, x: torch.Tensor):
+def _project_qkv(p: dict, cfg: AttnConfig, x: torch.Tensor,
+                 x_kv: Optional[torch.Tensor] = None):
+    x_kv = x if x_kv is None else x_kv
     q = linear(x, p["wq"])
-    k = linear(x, p["wk"])
-    v = linear(x, p["wv"])
+    k = linear(x_kv, p["wk"].to(x.dtype))
+    v = linear(x_kv, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -100,12 +103,12 @@ def _project_qkv(p: dict, cfg: AttnConfig, x: torch.Tensor):
     return q, k, v
 
 
-def _rope(cfg: AttnConfig, q, k, q_pos, k_pos):
+def _rope(cfg: AttnConfig, q, k, q_pos, k_pos, positions3=None):
     if not cfg.use_rope:
         return q, k
     if cfg.mrope_sections is not None:
-        raise ValueError("M-RoPE (apply_mrope) is not yet ported: it waits "
-                         "for the VLM family")
+        return (apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta))
     return (apply_rope(q, q_pos, cfg.rope_theta),
             apply_rope(k, k_pos, cfg.rope_theta))
 
@@ -132,26 +135,36 @@ def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
 
 
 def full_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
+                   x_kv: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
+                   kv_positions: Optional[torch.Tensor] = None,
+                   positions3: Optional[torch.Tensor] = None,
                    seg_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence self-attention (prefill / scoring).
+    """Full-sequence attention (train / prefill), self- or, with ``x_kv``
+    (B, T, d), cross-attention.
 
-    ``positions`` (B, S) query and key positions; the causal /
-    sliding-window mask is built from them."""
+    ``positions`` (B, S) query positions, ``kv_positions`` (B, T) key
+    positions (the queries' for self-attention, ``arange(T)`` for
+    cross-attention); the causal / sliding-window mask is built from them.
+    ``positions3`` (3, B, S) are M-RoPE's position streams."""
     b, s, _ = x.shape
+    t = s if x_kv is None else x_kv.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(p, cfg, x)
-    q, k = _rope(cfg, q, k, positions, positions)
+    if kv_positions is None:
+        kv_positions = positions if x_kv is None else torch.arange(
+            t, device=x.device).expand(b, t)
+    q, k, v = _project_qkv(p, cfg, x, x_kv)
+    q, k = _rope(cfg, q, k, positions, kv_positions, positions3)
 
     scores = _grouped_scores(q, k) / math.sqrt(cfg.head_dim)   # (B,Hk,G,S,T)
-    mask = torch.ones((b, 1, 1, s, s), dtype=torch.bool, device=x.device)
+    mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool, device=x.device)
     if cfg.causal and not cfg.cross:
-        mask &= (positions[:, None, None, None, :]
+        mask &= (kv_positions[:, None, None, None, :]
                  <= positions[:, None, None, :, None])
     if cfg.window is not None and not cfg.cross:
         mask &= (positions[:, None, None, :, None]
-                 - positions[:, None, None, None, :]) < cfg.window
+                 - kv_positions[:, None, None, None, :]) < cfg.window
     if seg_mask is not None:
         mask &= seg_mask[:, None, None]
     scores = torch.where(mask, scores, NEG_INF)
@@ -187,7 +200,11 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     unwritten, in the future or outside the window are masked out."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)                       # (B,1,H,D)
-    q, k = _rope(cfg, q, k, pos[:, None], pos[:, None])
+    if cfg.mrope_sections is not None:
+        # text-phase decode: all three position streams advance together
+        q, k = _rope(cfg, q, k, None, None, pos[None, :, None].expand(3, b, 1))
+    else:
+        q, k = _rope(cfg, q, k, pos[:, None], pos[:, None])
 
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     length = ck.shape[1]

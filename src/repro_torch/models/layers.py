@@ -1,5 +1,5 @@
-"""Shared layers: norms, RoPE, dense/embedding parameters, MLPs (counterpart
-of ``repro.models.layers``).
+"""Shared layers: norms, RoPE and M-RoPE, sinusoidal positions,
+dense/embedding parameters, MLPs (counterpart of ``repro.models.layers``).
 
 Plain PyTorch ops written in the reference's order, including where the
 dtype changes: a norm computes in float32, casts to the compute dtype, then
@@ -14,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -81,14 +82,9 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x (..., S, H, D); positions (..., S) -> rotated x.
-
-    Interleaved-pair convention (llama), computed in float32."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                      # (D/2,)
-    angles = positions[..., None].to(torch.float32) * freqs      # (..., S, D/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated pairwise by float32 angles (..., S, D/2),
+    in float32, cast back to x's dtype."""
     cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
     x1 = x[..., 0::2].to(torch.float32)
@@ -97,6 +93,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     o2 = x2 * cos + x1 * sin
     out = torch.stack([o1, o2], dim=-1).reshape(x.shape)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, H, D); positions (..., S) -> rotated x.
+
+    Interleaved-pair convention (llama), computed in float32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections: tuple,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the head dim's frequency slots are split
+    into (t, h, w) sections, each rotated by its own position stream.
+
+    x (..., S, H, D); positions3 (3, ..., S); ``sections`` are half-dim
+    sizes summing to D/2 (e.g. (16, 24, 24) for D = 128)."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                      # (D/2,)
+    sec_id = torch.as_tensor(np.concatenate(
+        [np.full(s, i) for i, s in enumerate(sections)]), device=x.device)
+    # slot k rotates by positions3[sec_id[k]]
+    pos = positions3.index_select(0, sec_id).movedim(0, -1)     # (..., S, D/2)
+    return _rotate(x, pos.to(torch.float32) * freqs)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, D): computed in numpy
+    float64 as the reference does, then cast to float32."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.as_tensor(out.astype(np.float32), device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, dense family (qwen2.5 / qwen3 / smollm /
-granite); counterpart of ``repro.models.transformer``.
+"""Decoder-only transformer LM: dense (qwen2.5 / qwen3 / smollm / granite)
+and MoE (mixtral / phi-3.5) variants, and the text backbone of the VLM;
+counterpart of ``repro.models.transformer``.
 
 An ``nn.Module`` whose parameters carry the reference's tree names and
 layouts (``embedding``, ``unembed``, ``final_norm``, ``layers.<i>.ln1``,
@@ -25,8 +26,10 @@ Two paths run the same block body (``_block``):
   the backward pass (``torch.utils.checkpoint``, the reference's
   ``jax.checkpoint``).
 
-As in the reference, both ignore ``cfg.norm`` and always use RMSNorm.
-MoE (``num_experts > 0``) is refused: ``models/moe.py`` is not yet ported.
+With ``num_experts > 0`` each block's MLP is the MoE layer
+(``models/moe.py``) and the forward returns the blocks' load-balancing
+losses summed in float32; ``loss`` adds 0.01 of it.  As in the reference,
+both paths ignore ``cfg.norm`` and always use RMSNorm.
 """
 
 from __future__ import annotations
@@ -40,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.tree import leaves, unflatten
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.module import (
+    MLP, Attention, LMModule, mlp_apply, param, unstack_layers)
 
 
 def _attn_config(cfg: ModelConfig) -> attn.AttnConfig:
@@ -54,170 +59,105 @@ def _attn_config(cfg: ModelConfig) -> attn.AttnConfig:
         mrope_sections=cfg.mrope_sections)
 
 
-def _param(*shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=torch.float32,
-                                    device=device), requires_grad=False)
+def _moe_config(cfg: ModelConfig) -> moe_mod.MoEConfig:
+    return moe_mod.MoEConfig(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, num_experts=cfg.num_experts,
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
 
 
-class Attention(nn.Module):
-    def __init__(self, a: attn.AttnConfig, device):
+class MoE(nn.Module):
+    """``router (d, E)``, ``gate``/``up (E, d, f)``, ``down (E, f, d)``."""
+
+    def __init__(self, m: moe_mod.MoEConfig, device):
         super().__init__()
-        hp, hk, d, dm = a.heads_padded, a.kv_heads_padded, a.head_dim, a.d_model
-        self.wq = _param(dm, hp, d, device=device)
-        self.wk = _param(dm, hk, d, device=device)
-        self.wv = _param(dm, hk, d, device=device)
-        self.wo = _param(hp, d, dm, device=device)
-        if a.qkv_bias:
-            self.bq = _param(hp, d, device=device)
-            self.bk = _param(hk, d, device=device)
-            self.bv = _param(hk, d, device=device)
-        if a.qk_norm:
-            self.q_norm = _param(d, device=device)
-            self.k_norm = _param(d, device=device)
-
-
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
-        super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
-        if cfg.mlp == "swiglu":
-            self.gate = _param(d, f, device=device)
-            self.up = _param(d, f, device=device)
-            self.down = _param(f, d, device=device)
-        else:
-            self.fc1 = _param(d, f, device=device)
-            self.b1 = _param(f, device=device)
-            self.fc2 = _param(f, d, device=device)
-            self.b2 = _param(d, device=device)
+        e, d, f = m.num_experts, m.d_model, m.d_ff
+        self.router = param(d, e, device=device)
+        self.gate = param(e, d, f, device=device)
+        self.up = param(e, d, f, device=device)
+        self.down = param(e, f, d, device=device)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, a: attn.AttnConfig, device):
         super().__init__()
-        self.ln1 = _param(cfg.d_model, device=device)
+        self.ln1 = param(cfg.d_model, device=device)
         self.attn = Attention(a, device)
-        self.ln2 = _param(cfg.d_model, device=device)
-        self.mlp = MLP(cfg, device)
+        self.ln2 = param(cfg.d_model, device=device)
+        if cfg.num_experts:
+            self.moe = MoE(_moe_config(cfg), device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, device)
 
 
-def _tree(module: nn.Module, dtype: torch.dtype) -> dict:
-    """A module's parameters as the reference's nested dict, cast to
-    ``dtype`` (float32 parameters are passed through, not copied)."""
-    out = {name: p.detach().to(dtype)
-           for name, p in module.named_parameters(recurse=False)}
-    for name, child in module.named_children():
-        out[name] = _tree(child, dtype)
-    return out
-
-
-def unstack_layers(layers: dict) -> list[dict]:
-    """A stacked layer tree (leaves ``(L, ...)``) as one tree a layer, each
-    leaf a view of its stacked leaf (one ``unbind(0)`` a leaf: its backward
-    is a single ``stack``, where ``leaf[i]`` per layer would write a whole
-    ``(L, ...)`` gradient for each)."""
-    views = [leaf.unbind(0) for leaf in leaves(layers)]
-    return [unflatten(layers, [v[i] for v in views])
-            for i in range(len(views[0]))]
-
-
-class DecoderLM(nn.Module):
+class DecoderLM(LMModule):
     """Decoder-only LM on ``device`` with random weights from ``seed``
     (truncated normal, fan-in scaled, on a ``torch.Generator`` of that
     device)."""
 
     def __init__(self, cfg: ModelConfig, device=None, seed: int = 0):
-        super().__init__()
-        if cfg.num_experts:
-            raise ValueError(
-                f"{cfg.name}: num_experts={cfg.num_experts} needs the MoE "
-                "layer, models/moe.py, which is not yet ported")
-        self.cfg = cfg
+        super().__init__(cfg)
         self.acfg = _attn_config(cfg)
-        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.mcfg = _moe_config(cfg) if cfg.num_experts else None
         v_pad = L.pad_to(cfg.vocab_size, 256)
-        self.embedding = _param(v_pad, cfg.d_model, device=device)
+        self.embedding = param(v_pad, cfg.d_model, device=device)
         if not cfg.tie_embeddings:
-            self.unembed = _param(v_pad, cfg.d_model, device=device)
-        self.final_norm = _param(cfg.d_model, device=device)
+            self.unembed = param(v_pad, cfg.d_model, device=device)
+        self.final_norm = param(cfg.d_model, device=device)
         self.layers = nn.ModuleList(Block(cfg, self.acfg, device)
                                     for _ in range(cfg.num_layers))
-        self._cast = None
         self.reset_parameters(seed)
 
-    # ------------------------------------------------------------- params --
-    @torch.no_grad()
-    def reset_parameters(self, seed: int = 0) -> None:
-        """Random weights, initialised as the reference's ``init``: norms
-        one, biases zero, the embedding a truncated normal at scale 1,
-        every other matrix at ``1/sqrt(shape[0])``; padded heads' ``wo``
-        rows zero."""
-        gen = torch.Generator(device=self.embedding.device)
-        gen.manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
-                p.fill_(1.0)
-            elif leaf in ("bq", "bk", "bv", "b1", "b2"):
-                p.zero_()
-            else:
-                L.dense_init_(p, gen, 1.0 if leaf == "embedding" else None)
-        for blk in self.layers:
-            blk.attn.wo.copy_(attn.mask_padded_heads(
-                {"wo": blk.attn.wo}, self.acfg)["wo"])
-
-    def compute_params(self) -> dict:
-        """The parameters as the reference's nested dict (``layers`` a list,
-        one dict a layer) in the compute dtype: the module's float32
-        tensors at float32 compute, else one cached cast, re-made after any
-        parameter changed."""
-        version = tuple(p._version for p in self.parameters())
-        if self._cast is None or self._cast[0] != version:
-            self._cast = None
-            tree = _tree(self, self.compute_dtype)
-            tree["layers"] = [tree["layers"][str(i)]
-                              for i in range(self.cfg.num_layers)]
-            self._cast = (version, tree)
-        return self._cast[1]
-
-    def _apply(self, fn, recurse=True):
-        self._cast = None
-        return super()._apply(fn, recurse)
-
     # ------------------------------------------------------------ forward --
-    def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
-        if self.cfg.mlp == "swiglu":
-            return L.swiglu_apply(lp["mlp"], h)
-        return L.gelu_mlp_apply(lp["mlp"], h)
+    def _ffn(self, lp: dict, h: torch.Tensor, aux: bool = True):
+        """The block's MLP or MoE on ``h``: (out, float32 aux loss or
+        None)."""
+        if self.mcfg is None:
+            return mlp_apply(lp["mlp"], h, self.cfg.mlp), None
+        if aux:
+            return moe_mod.moe_apply(lp["moe"], self.mcfg, h, return_aux=True)
+        return moe_mod.moe_apply(lp["moe"], self.mcfg, h), None
 
     def _block(self, lp: dict, x: torch.Tensor,
-               positions: Optional[torch.Tensor]) -> torch.Tensor:
+               positions: Optional[torch.Tensor],
+               positions3: Optional[torch.Tensor]):
         h = L.rms_norm(x, lp["ln1"])
         x = x + attn.full_attention(lp["attn"], self.acfg, h,
-                                    positions=positions)
-        h = L.rms_norm(x, lp["ln2"])
-        return x + self._mlp(lp, h)
+                                    positions=positions,
+                                    positions3=positions3)
+        h, aux = self._ffn(lp, L.rms_norm(x, lp["ln2"]))
+        return x + h, aux
 
-    def _run(self, w: dict, layers, tokens: torch.Tensor,
-             positions: Optional[torch.Tensor], remat: bool):
-        """Embed, the blocks (one tree a layer in ``layers``), final norm
-        and unembed: (logits (B, S, V_pad), aux loss 0)."""
-        x = L.embed_apply(w, tokens).to(self.compute_dtype)
+    def _run(self, w: dict, layers, tokens: Optional[torch.Tensor],
+             positions: Optional[torch.Tensor], remat: bool,
+             positions3: Optional[torch.Tensor] = None,
+             inputs_embeds: Optional[torch.Tensor] = None):
+        """Embed (or take ``inputs_embeds``), the blocks (one tree a layer
+        in ``layers``), final norm and unembed: (logits (B, S, V_pad),
+        the blocks' aux losses summed in float32)."""
+        x = (L.embed_apply(w, tokens) if inputs_embeds is None
+             else inputs_embeds).to(self.compute_dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in layers:
             if remat:
-                x = checkpoint(self._block, lp, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._block, lp, x, positions, positions3,
+                                  use_reentrant=False)
             else:
-                x = self._block(lp, x, positions)
+                x, a = self._block(lp, x, positions, positions3)
+            if a is not None:
+                aux = aux + a
         x = L.rms_norm(x, w["final_norm"])
         logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, aux
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None):
-        """tokens (B, S) -> (logits (B, S, V_pad), aux loss 0)."""
+    def forward(self, tokens: Optional[torch.Tensor],
+                positions: Optional[torch.Tensor] = None,
+                positions3: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None):
+        """tokens (B, S) -> (logits (B, S, V_pad), aux loss)."""
         w = self.compute_params()
-        return self._run(w, w["layers"], tokens, positions, remat=False)
+        return self._run(w, w["layers"], tokens, positions, False,
+                         positions3, inputs_embeds)
 
     def _loss(self, out, labels: torch.Tensor) -> torch.Tensor:
         logits, aux = out
@@ -225,26 +165,30 @@ class DecoderLM(nn.Module):
         return ce + 0.01 * aux
 
     def loss(self, batch: dict) -> torch.Tensor:
-        return self._loss(self.forward(batch["tokens"],
-                                       positions=batch.get("positions")),
-                          batch["labels"])
+        return self._loss(self.forward(
+            batch["tokens"], positions=batch.get("positions"),
+            positions3=batch.get("positions3"),
+            inputs_embeds=batch.get("inputs_embeds")), batch["labels"])
 
     # ------------------------------------------------ functional (train) --
-    def apply(self, params: dict, tokens: torch.Tensor,
-              positions: Optional[torch.Tensor] = None):
-        """The reference's ``forward(params, tokens, positions)`` on a
-        stacked parameter tree, differentiable in ``params``: tokens
-        (B, S) -> (logits (B, S, V_pad), aux loss 0).  (It shadows
+    def apply(self, params: dict, tokens: Optional[torch.Tensor],
+              positions: Optional[torch.Tensor] = None,
+              positions3: Optional[torch.Tensor] = None,
+              inputs_embeds: Optional[torch.Tensor] = None):
+        """The reference's ``forward(params, tokens, ...)`` on a stacked
+        parameter tree, differentiable in ``params``: tokens (B, S) ->
+        (logits (B, S, V_pad), aux loss).  (It shadows
         ``nn.Module.apply(fn)``, which nothing calls on this module.)"""
         return self._run(params, unstack_layers(params["layers"]), tokens,
-                         positions, remat=self.cfg.remat)
+                         positions, self.cfg.remat, positions3, inputs_embeds)
 
     def loss_fn(self, params: dict, batch: dict) -> torch.Tensor:
         """The reference's ``loss(params, batch)``: mean next-token cross
-        entropy of ``apply`` (plus 0.01 x its aux loss)."""
-        return self._loss(self.apply(params, batch["tokens"],
-                                     positions=batch.get("positions")),
-                          batch["labels"])
+        entropy of ``apply`` plus 0.01 x its aux loss."""
+        return self._loss(self.apply(
+            params, batch["tokens"], positions=batch.get("positions"),
+            positions3=batch.get("positions3"),
+            inputs_embeds=batch.get("inputs_embeds")), batch["labels"])
 
     # ------------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int,
@@ -259,22 +203,24 @@ class DecoderLM(nn.Module):
         """tokens (B, 1), pos (B,) -> (logits (B,1,V), cache), the cache
         written in place."""
         w = self.compute_params()
-        x = L.embed_apply(w, tokens).to(self.compute_dtype)
+        x = self._embed(w, tokens)
         for i, lp in enumerate(w["layers"]):
             h = L.rms_norm(x, lp["ln1"])
             h, _ = attn.decode_attention(
                 lp["attn"], self.acfg, h,
                 {k: cache[k][i] for k in ("k", "v", "pos")}, pos)
             x = x + h
-            h = L.rms_norm(x, lp["ln2"])
-            x = x + self._mlp(lp, h)
+            h, _ = self._ffn(lp, L.rms_norm(x, lp["ln2"]), aux=False)
+            x = x + h
         x = L.rms_norm(x, w["final_norm"])
         logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
         return logits, cache
 
-    def prefill(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def prefill(self, tokens: Optional[torch.Tensor],
+                positions: Optional[torch.Tensor] = None,
+                positions3: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence forward returning last-position logits (the
         prefill benchmark shape)."""
-        logits, _ = self.forward(tokens, positions)
+        logits, _ = self.forward(tokens, positions, positions3, inputs_embeds)
         return logits[:, -1:]

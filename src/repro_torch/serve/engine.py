@@ -2,14 +2,17 @@
 batching (counterpart of ``repro.serve.engine``).
 
 Requests occupy batch *slots*; each decode step advances every slot by one
-token.  Finished slots are refilled from the queue without draining the
+token, through the family's cache (KV caches and their sliding-window ring
+buffers, Mamba states, xLSTM memories).  Finished slots are refilled from the queue without draining the
 batch.  Prefill is teacher-forced decode steps, one a prompt token, that
 fill the slot's cache token by token (every slot takes part in each such
 step, as in the reference).  Greedy decoding takes the argmax over the
 padded vocabulary, as the reference's does, so a padding row's id (>=
 ``vocab_size``) can be emitted; the next tokens are read to the host once a
-step.  The KV cache is written in place.  Runs on the CUDA device unless
-``device`` says otherwise.
+step.  The cache is written in place.  Runs on the CUDA device unless
+``device`` says otherwise.  Every family that decodes one token at a time
+is served; the encoder-decoder family is not (its decode needs the
+encoder's output), as in the reference.
 """
 
 from __future__ import annotations
@@ -38,6 +41,10 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, batch_slots: int = 4,
                  max_len: int = 512, seed: int = 0, greedy: bool = True,
                  device=None):
+        if cfg.family == "encdec":
+            raise ValueError(f"{cfg.name}: ServeEngine serves decoder-only "
+                             "families; the encoder-decoder's decode_step "
+                             "needs the encoder's cross K/V")
         self.cfg = cfg
         self.model = build_model(cfg, device=device, seed=seed)
         self.device = self.model.embedding.device

@@ -1,5 +1,8 @@
-"""Port parity: the dense model family (``repro_torch.configs``,
-``repro_torch.models``) against the JAX package, on the CPU.
+"""Port parity: the model zoo (``repro_torch.configs``,
+``repro_torch.models``) against the JAX package, on the CPU; the dense
+family in depth (each other family has its own file:
+``test_torch_moe.py``, ``test_torch_vlm_encdec.py``,
+``test_torch_ssm_zamba.py``, ``test_torch_xlstm.py``).
 
 * ``ModelConfig``: every arch's config, full and reduced, equals the
   reference's field for field (``dataclasses.asdict``), with the same
@@ -23,8 +26,15 @@
   (float32 compute and cache, 1e-5 · max|logit|), as the reference's own
   ``test_decode_matches_forward``.
 * ``load_reference_params`` refuses a missing leaf, an extra leaf, a wrong
-  shape and a wrong layer count; families not yet ported are refused by
-  name; ``build_model`` without a device raises when there is no card.
+  shape and a wrong layer count; it and ``tree_from_reference(...,
+  model=)`` refuse a missing, extra or misshapen leaf in every tree layout
+  (stacked ``layers``, ``enc_layers``/``dec_layers``, ``shared`` and
+  ``site_proj``, xLSTM's ``blocks`` tuple); ``tree_from_module`` gives the
+  reference's leaf paths and shapes for all ten archs and loads back bit
+  for bit; ``build_model`` without a device raises when there is no card.
+* The reference's ``test_arch_smoke`` on the port: every arch at
+  ``reduced=True`` and a dense arch with ``num_experts=4``, one loss and
+  one decode step, finite.
 * The layers (``rms_norm``, ``apply_rope``, ``cross_entropy_loss``,
   ``real_head_mask``) against the reference's, float32 within 1e-6
   relative; the port's initialiser draws a truncated normal at the
@@ -54,8 +64,10 @@ from repro_torch.configs import registry as treg
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as t_build
 from repro_torch.models import layers as tL
-from repro_torch.models.convert import load_reference_params
-from repro_torch.models.transformer import DecoderLM
+from repro_torch.models.convert import (
+    load_reference_params, tree_from_module, tree_from_reference)
+from repro_torch.models.vlm import build_positions3
+from repro_torch.tree import leaves_with_paths
 
 DENSE = ("smollm-135m", "qwen3-0.6b", "qwen2.5-14b", "granite-34b")
 # (arch, tp, overrides): the dense archs at reduced size, smollm with
@@ -245,19 +257,120 @@ def test_load_reference_params_refuses_mismatch(fault):
     load_reference_params(tm, _ref_tree())      # the whole tree loads
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS
-                                  if j_config(a).family != "dense"])
-def test_unported_families_are_refused(arch):
-    cfg = t_config(arch, reduced=True)
-    with pytest.raises(ValueError, match="not yet ported"):
-        t_build(cfg, device="cpu")
+# one reference tree of each layout: stacked ``layers`` (qwen3), the
+# encoder-decoder's two stacks and ``dec_pos``, the hybrid's plain
+# ``site_proj`` / ``shared`` beside stacked Mamba layers, xLSTM's tuple of
+# per-layer ``blocks``; a missing, an extra and a misshapen leaf in each
+LAYOUTS = {
+    "layers": ("qwen3-0.6b", ("layers", "attn", "k_norm")),
+    "enc_dec": ("whisper-large-v3", ("dec_layers", "cross_attn", "wq")),
+    "shared": ("zamba2-1.2b", ("shared", "mlp", "up")),
+    "site_proj": ("zamba2-1.2b", ("site_proj",)),
+    "blocks": ("xlstm-125m", ("blocks", 1, "r_z")),
+}
 
 
-def test_moe_layers_are_refused_in_a_dense_model():
-    cfg = dataclasses.replace(t_config("smollm-135m", reduced=True),
-                              num_experts=4)
-    with pytest.raises(ValueError, match="models/moe.py"):
-        DecoderLM(cfg, device="cpu")
+def _layout_tree(arch):
+    jc, tc = _configs(arch, 1, "float32")
+    params, _ = j_build(jc).init(jax.random.PRNGKey(0))
+    return tc, jax.tree.map(np.array, params)
+
+
+def _get(tree, path):
+    for k in path[:-1]:
+        tree = tree[k]
+    return tree, path[-1]
+
+
+@pytest.mark.parametrize("fault", ["missing", "extra", "shape"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_every_tree_layout_is_checked(layout, fault):
+    arch, path = LAYOUTS[layout]
+    tc, tree = _layout_tree(arch)
+    tm = t_build(tc, device="cpu")
+    load_reference_params(tm, tree)          # the whole tree loads
+    if isinstance(tree.get("blocks"), tuple):
+        tree["blocks"] = list(tree["blocks"])
+    parent, key = _get(tree, path)
+    if fault == "missing":
+        del parent[key]
+        match = "no reference leaf fills"
+    elif fault == "extra":
+        parent[f"{key}_extra"] = parent[key]
+        match = "has no parameter"
+    else:
+        parent[key] = parent[key][..., :-1]
+        match = "shape"
+    for check in (lambda: load_reference_params(tm, tree),
+                  lambda: tree_from_reference(tree, "cpu", model=tm)):
+        with pytest.raises(ValueError, match=match):
+            check()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_module_tree_round_trips(arch):
+    """``tree_from_module`` gives the reference's layout (its leaf paths
+    and shapes), and loads back into another module bit for bit."""
+    tc, ref = _layout_tree(arch)
+    tm = t_build(tc, device="cpu", seed=4)
+    tree = tree_from_module(tm)
+    assert [(p, tuple(v.shape)) for p, v in leaves_with_paths(tree)] == \
+        [(p, v.shape) for p, v in leaves_with_paths(ref)]
+    if tc.family == "xlstm":
+        assert isinstance(tree["blocks"], tuple)
+    other = t_build(tc, device="cpu", seed=5)
+    load_reference_params(other, tree)
+    for (n, a), (_, b) in zip(tm.named_parameters(), other.named_parameters()):
+        assert torch.equal(a, b), n
+
+
+def _smoke_batch(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    b, s = 2, 32
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)))
+    labels = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)))
+    if cfg.family == "encdec":
+        return {"enc_embeds": torch.as_tensor(
+            rng.normal(size=(b, s, cfg.d_model)), dtype=torch.float32),
+            "tokens": toks, "labels": labels}
+    if cfg.family == "vlm":
+        sv = s // 4
+        return {"vis_embeds": torch.as_tensor(
+            rng.normal(size=(b, sv, cfg.d_model)), dtype=torch.float32),
+            "tokens": toks[:, :s - sv], "labels": labels[:, :s - sv],
+            "positions3": torch.as_tensor(build_positions3(b, sv, s - sv))}
+    return {"tokens": toks, "labels": labels}
+
+
+SMOKE = list(ARCHS) + ["smollm-135m+moe"]
+
+
+@pytest.mark.parametrize("arch", SMOKE)
+def test_arch_smoke(arch):
+    """The reference's ``test_arch_smoke`` on the port: the reduced config
+    (and a dense arch with ``num_experts=4``), one loss and one decode
+    step, finite."""
+    name, _, moe = arch.partition("+")
+    cfg = t_config(name, reduced=True)
+    if moe:
+        cfg = dataclasses.replace(cfg, num_experts=4)
+    model = t_build(cfg, device="cpu", seed=1)
+    batch = _smoke_batch(cfg)
+    loss = float(model.loss(batch))
+    assert np.isfinite(loss), (arch, loss)
+    cache = model.init_cache(2, 64)
+    tok = batch["tokens"][:, :1]
+    pos = torch.zeros(2, dtype=torch.int32)
+    if cfg.family == "encdec":
+        ckv = model.precompute_cross(model.encode(batch["enc_embeds"]))
+        logits, _ = model.decode_step(cache, tok, pos, ckv)
+    else:
+        logits, _ = model.decode_step(cache, tok, pos)
+    assert logits.shape[:2] == (2, 1)
+    assert torch.isfinite(logits.float()).all(), arch
+    if moe:
+        assert model.layers[0].moe.gate.shape == (4, cfg.d_model, cfg.d_ff)
+        assert float(model.forward(batch["tokens"])[1]) > 0
 
 
 def test_default_device_is_cuda():
