@@ -6,6 +6,8 @@
     python3 chip_smoke.py --ml         # build and the ML plane's phases only
     python3 chip_smoke.py --train      # build and the training phase only
     python3 chip_smoke.py --families   # build and the other families only
+    python3 chip_smoke.py --shard      # build, the sharded verify cell and
+                                       # the sharded train step only
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -194,12 +196,42 @@ either is missing or any phase fails.  Phases:
                answers within 3·ε of exact; train_with_verification's gate
                decisions the CPU gate's and its losses finite.
 
+24. verify-cell — ``launch/verify_cell.py``'s production program at its
+               widths (6 ASCII columns, 96-byte records, 65,536-tuple
+               chunks, the three HAVING queries at eps 0.05, budget 256,
+               one worker a rank) with the chunk count cut from 4,096 to
+               256 (1,536 MiB raw) over 2 gloo ranks on the one card: the
+               sharded layout (each rank its 128 chunks and its own
+               committed order) to every query's stop, equal on every
+               rank and, over the first 8 rounds, to the same ranks on
+               the CPU (integers equal, floats within float32 1e-5); the
+               replicated layout (kernel 1, once a round) bit for bit the
+               single-device engine; verdicts the float64 truth's,
+               estimates within 3 eps; ms and collective ms a round (50
+               rounds) and each rank's peak memory for both layouts.
+25. shard     — smollm-135m's train_4k cell (``launch/steps.py``
+               ``build_cell``) at its published widths (bf16, remat), the
+               batch cut to 4 x 128, on a (data 2, model 2) mesh of 4
+               gloo ranks on the one card (DTensor parameters, Adam
+               moments and batch): the float32 step at 4 layers equal to
+               the single-device step on the card within 1e-5 relative
+               (loss, grad_norm, each updated parameter in norm, each
+               leaf of Adam's first moment, the step's gradient); on a
+               traced step every block's output reaches
+               ``constrain("btd")`` batch-sharded over data; 2 steps,
+               losses finite and equal on
+               every rank; qwen3-0.6b's decode cell at 4 layers, float32,
+               equal to single-device decode within 1e-5 of the largest
+               logit; ms a step, the first step's collectives, each
+               rank's resident state and peak memory.
+
 ``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
 stores and exits 0 when they pass, printing no result lines.  ``--spmd``
 runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
 pass, printing no result lines.  ``--ml`` runs phases 1 and 16-23 and
 exits 0 when they pass, printing no result lines; ``--train`` runs phases
-1 and 20 the same way, ``--families`` phases 1, 21 and 22.
+1 and 20 the same way, ``--families`` phases 1, 21 and 22, ``--shard``
+phases 1, 24 and 25.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -4459,6 +4491,584 @@ def phase_families_train(card: str, device: str = "cuda") -> dict:
                 run_peak_mib=run_peak)
 
 
+# ---------------------------------------------------- verify cell, shard --
+# [verify-cell]: launch/verify_cell.py's production program at its widths
+# (6 ASCII columns, 96-byte records, 65,536-tuple chunks, the three HAVING
+# queries at eps 0.05, budget 256, one worker a rank) over VERIFY_RANKS
+# gloo ranks on the one card; the chunk count cut from 4,096 to 256
+# (16,777,216 tuples, 1,536 MiB raw) for host memory and the time limit
+VERIFY_CHUNKS = 256
+VERIFY_M = 65_536
+VERIFY_COLS = 6
+VERIFY_BUDGET = 256
+VERIFY_RANKS = 2
+VERIFY_ROUND_CAP = 400          # rounds at most to every query's stop
+VERIFY_TIMED_ROUNDS = 50        # rounds timed after the stop
+VERIFY_PARITY_ROUNDS = 8        # card == CPU over the first rounds
+VERIFY_SEED = 5
+# columns: 0 document length, 1 quality, 3 duplicate share; the others
+# fill the record.  Uniform draws put avg_quality (> 75) and avg_dup (< 10)
+# true and short_docs (< 1e6 rows with column 0 in [0, 16)) false
+VERIFY_RANGES = ((0.0, 100.0), (60.0, 100.0), (0.0, 100.0), (0.0, 16.0),
+                 (0.0, 100.0), (0.0, 100.0))
+VERIFY_INTS = ("m", "offset", "closed", "raw_touched", "scan_m", "head",
+               "round", "stopped", "decided", "tuples_round", "n_chunks",
+               "m_tuples", "exhausted", "cpu_bound")
+VERIFY_FLOATS = ("ysum", "ysq", "psum", "t_io", "t_cpu", "estimate", "lo",
+                 "hi", "err", "bytes_round")
+
+
+def verify_values() -> np.ndarray:
+    rng = np.random.default_rng(VERIFY_SEED)
+    lo = np.asarray([r[0] for r in VERIFY_RANGES])
+    hi = np.asarray([r[1] for r in VERIFY_RANGES])
+    return lo + (hi - lo) * rng.random((VERIFY_CHUNKS * VERIFY_M,
+                                        VERIFY_COLS))
+
+
+def verify_record(state, rep) -> dict:
+    """One round of the verify cell on the host."""
+    out = {f: getattr(state.stats, f).cpu().numpy()
+           for f in ("m", "ysum", "ysq", "psum")}
+    for f in ("offset", "closed", "raw_touched", "scan_m", "head", "round",
+              "stopped", "t_io", "t_cpu", "cpu_bound"):
+        out[f] = getattr(state, f).cpu().numpy()
+    for f in ("estimate", "lo", "hi", "err", "decided", "tuples_round",
+              "n_chunks", "m_tuples", "exhausted", "bytes_round"):
+        out[f] = getattr(rep, f).cpu().numpy()
+    return out
+
+
+def verify_drive(step, state, packed, speeds, device, rounds: int,
+                 eps=(), timed: bool = True) -> dict:
+    """Rounds of one verify layout, each recorded.  With the queries'
+    ``eps``: the round every query has stopped by (its HAVING verdict or
+    its error ratio) and each query's first round at error ratio <= eps,
+    recorded on until both are known and VERIFY_PARITY_ROUNDS have run.
+    ``timed``: ms a round and collective ms a round over
+    VERIFY_TIMED_ROUNDS more."""
+    coll = step.coll
+    reduce_ = coll._all_reduce
+    spent = {"s": 0.0, "n": 0}
+
+    def counted(t, op=None):
+        t1 = time.perf_counter()
+        out = reduce_(t, op)
+        spent["s"] += time.perf_counter() - t1
+        spent["n"] += 1
+        return out
+
+    coll._all_reduce = counted
+    trace, stop, accurate = [], None, {}
+    for r in range(rounds):
+        state, rep = step(state, packed, speeds)
+        trace.append(verify_record(state, rep))
+        if not eps:
+            continue
+        if stop is None and bool(rep.all_stopped):
+            stop = r + 1
+        for q, (e, target) in enumerate(zip(trace[-1]["err"], eps)):
+            if q not in accurate and e <= target:
+                accurate[q] = r + 1
+        if (stop is not None and len(accurate) == len(eps)
+                and r + 1 >= VERIFY_PARITY_ROUNDS):
+            break
+    out = dict(trace=trace, stop=stop, accurate=accurate)
+    if timed:
+        sync(device)
+        spent.update(s=0.0, n=0)
+        t0 = time.perf_counter()
+        for _ in range(VERIFY_TIMED_ROUNDS):
+            state, rep = step(state, packed, speeds)
+        sync(device)
+        wall = time.perf_counter() - t0
+        out.update(ms=wall / VERIFY_TIMED_ROUNDS * 1e3,
+                   coll_ms=spent["s"] / VERIFY_TIMED_ROUNDS * 1e3,
+                   collectives=spent["n"] / VERIFY_TIMED_ROUNDS)
+    coll._all_reduce = reduce_
+    return out
+
+
+def verify_cell_rank(rank: int, ranks: int, init_file: str, out_dir: str,
+                     packed_path: str, device: str) -> None:
+    """One rank of [verify-cell]: the sharded layout (its N/D chunks) on
+    ``device`` to every query's stop (VERIFY_PARITY_ROUNDS at least),
+    timed, then the replicated layout (the whole store) for as many
+    rounds, then (on the card) the sharded layout on the CPU over
+    VERIFY_PARITY_ROUNDS rounds; peak device memory of each layout."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.verify_cell import (
+        build_verify_cell, local_state, production_verify_program)
+
+    def program_on(dev):
+        return production_verify_program(
+            n_chunks=VERIFY_CHUNKS, m_per_chunk=VERIFY_M,
+            num_cols=VERIFY_COLS, workers=ranks, budget=VERIFY_BUDGET,
+            device=dev)[0]
+
+    mesh = spmd_mesh(ranks, rank, init_file, device)
+    card = device == "cuda"
+    try:
+        whole = np.load(packed_path, mmap_mode="r")
+        nl = VERIFY_CHUNKS // ranks
+        out = {}
+        for layout in ("sharded", "replicated"):
+            if card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            step, _, program = build_verify_cell(
+                mesh, layout, VERIFY_BUDGET, program=program_on(device),
+                device=device)
+            rows = (whole[rank * nl:(rank + 1) * nl] if layout == "sharded"
+                    else whole)
+            reset_launches()
+            packed = torch.from_numpy(np.array(rows)).to(device)
+            speeds = torch.ones(program.config.num_workers // ranks,
+                                device=device)
+            state = local_state(program, rank,
+                                program.config.num_workers // ranks)
+            rounds = (VERIFY_ROUND_CAP if layout == "sharded"
+                      else len(out["sharded"]["trace"]))
+            run = verify_drive(step, state, packed, speeds, device, rounds,
+                               eps=(program.eps.tolist()
+                                    if layout == "sharded" else ()))
+            run["packed_mib"] = packed.numel() / 2**20
+            run["peak_mib"] = peak_mib(device)
+            run["launches"] = launch_counts()["slot_extract"]
+            out[layout] = run
+            del packed, step, program, state
+        if card:
+            step, _, program = build_verify_cell(
+                mesh, "sharded", VERIFY_BUDGET, program=program_on("cpu"),
+                device="cpu")
+            packed = torch.from_numpy(np.array(
+                whole[rank * nl:(rank + 1) * nl]))
+            out["cpu"] = verify_drive(
+                step, local_state(program, rank, 1), packed,
+                torch.ones(1), "cpu", VERIFY_PARITY_ROUNDS, timed=False)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def verify_close(got: dict, want: dict, where: str) -> None:
+    for f in VERIFY_INTS:
+        if not np.array_equal(np.asarray(got[f]).astype(np.int64),
+                              np.asarray(want[f]).astype(np.int64)):
+            raise AssertionError(f"{where}: {f} differs")
+    for f in VERIFY_FLOATS:
+        a = np.asarray(got[f], np.float64)
+        b = np.asarray(want[f], np.float64)
+        fin = np.isfinite(b)
+        scale = max(float(np.max(np.abs(b[fin]), initial=0.0)), 1e-30)
+        if not (np.array_equal(np.isfinite(a), fin) and np.max(
+                np.abs(a[fin] - b[fin]), initial=0.0) <= 1e-5 * scale):
+            raise AssertionError(f"{where}: {f} beyond float32 1e-5")
+
+
+def phase_verify_cell(card: str, device: str = "cuda") -> dict:
+    """launch/verify_cell.py over VERIFY_RANKS gloo ranks on the one card:
+    the sharded layout to every query's stop (its state equal to the same
+    ranks' on the CPU over the first rounds: integers equal, floats within
+    float32 1e-5), the replicated layout bit for bit the single-device
+    engine on the card, each verdict the float64 truth's and each estimate
+    within 3 eps of its exact value; ms and collective ms a round and each
+    rank's peak device memory for both layouts."""
+    from repro_torch.launch.verify_cell import production_verify_program
+
+    t0 = time.perf_counter()
+    values = verify_values()
+    program, cfg, codec = production_verify_program(
+        n_chunks=VERIFY_CHUNKS, m_per_chunk=VERIFY_M, num_cols=VERIFY_COLS,
+        workers=VERIFY_RANKS, budget=VERIFY_BUDGET, device=device)
+    blocks = values.reshape(VERIFY_CHUNKS, VERIFY_M, VERIFY_COLS)
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        raw = np.stack(list(pool.map(codec.encode, blocks)))
+    truth = [float(values[:, 1].mean()), float(values[:, 3].mean()),
+             float(((values[:, 0] >= 0) & (values[:, 0] < 16)).sum())]
+    verdicts = [truth[0] > 75.0, truth[1] < 10.0, truth[2] < 1e6]
+    del values, blocks
+    log(f"[verify-cell] {VERIFY_CHUNKS} chunks x {VERIFY_M} tuples x "
+        f"{VERIFY_COLS} columns, {codec.record_bytes}-byte records "
+        f"({raw.nbytes / 2**20:.0f} MiB raw) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_verify_") as tmp:
+        path = os.path.join(tmp, "packed.npy")
+        np.save(path, raw)
+        t0 = time.perf_counter()
+        outs = spawn_ranks(verify_cell_rank, VERIFY_RANKS, (path, device),
+                           "[verify-cell]")
+        secs = time.perf_counter() - t0
+    # the single-device engine: both workers on one device
+    sharded = [o["sharded"] for o in outs]
+    stop = sharded[0]["stop"]
+    if stop is None:
+        raise AssertionError(f"[verify-cell] a query still ran after "
+                             f"{VERIFY_ROUND_CAP} rounds")
+    packed = torch.from_numpy(raw).to(device)
+    del raw
+    speeds = torch.ones(VERIFY_RANKS, device=device)
+    state = program.init_state()
+    single = []
+    for _ in range(len(sharded[0]["trace"])):
+        state, rep = program.round_body(state, packed, speeds, VERIFY_BUDGET)
+        single.append(verify_record(state, rep))
+    del packed, state
+    for rank, o in enumerate(outs):
+        where = f"[verify-cell] rank {rank}"
+        if o["sharded"]["stop"] != stop:
+            raise AssertionError(f"{where}: stopped at round "
+                                 f"{o['sharded']['stop']}, rank 0 at {stop}")
+        for r, (g, w) in enumerate(zip(o["sharded"]["trace"],
+                                       sharded[0]["trace"])):
+            for f in w:
+                if np.asarray(g[f]).tobytes() != np.asarray(w[f]).tobytes():
+                    raise AssertionError(f"{where}: sharded round {r}: {f} "
+                                         f"differs from rank 0's")
+        rep_trace = o["replicated"]["trace"]
+        if len(rep_trace) != len(single):
+            raise AssertionError(f"{where}: {len(rep_trace)} replicated "
+                                 f"rounds, single device {len(single)}")
+        for r, (g, w) in enumerate(zip(rep_trace, single)):
+            for f in w:
+                a, b = np.asarray(g[f]), np.asarray(w[f])
+                if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"{where}: replicated round {r}: "
+                                         f"{f} differs from the single "
+                                         f"device's")
+        rounds = len(rep_trace) + VERIFY_TIMED_ROUNDS
+        if device == "cuda" and o["replicated"]["launches"] != rounds:
+            raise AssertionError(f"{where}: kernel 1 launches "
+                                 f"{o['replicated']['launches']} in the "
+                                 f"replicated layout's {rounds} rounds")
+        if device == "cuda":
+            cpu = o["cpu"]["trace"]
+            for r, (g, w) in enumerate(zip(o["sharded"]["trace"], cpu)):
+                verify_close(g, w, f"{where}: round {r} card vs CPU")
+    trace0 = sharded[0]["trace"]
+    last = trace0[stop - 1]
+    accurate = sharded[0]["accurate"]
+    if len(accurate) != len(truth):
+        raise AssertionError(f"[verify-cell] queries {sorted(accurate)} "
+                             f"reached eps in {VERIFY_ROUND_CAP} rounds")
+    estimates = []
+    for q, (t, want) in enumerate(zip(truth, verdicts)):
+        got = int(last["decided"][q])
+        if got != int(want):
+            raise AssertionError(f"[verify-cell] query {q}: verdict {got}, "
+                                 f"the float64 truth's {int(want)}")
+        est = float(trace0[accurate[q] - 1]["estimate"][q])
+        estimates.append(est)
+        if abs(est - t) > 3 * 0.05 * abs(t):
+            raise AssertionError(f"[verify-cell] query {q}: estimate {est} "
+                                 f"at error ratio <= eps beyond 3 eps of {t}")
+    recorded = len(sharded[0]["trace"])
+    parity = min(VERIFY_PARITY_ROUNDS, recorded)
+    for layout in ("sharded", "replicated"):
+        log(f"[verify-cell] {card}: {layout}: "
+            + "; ".join(
+                f"rank {r} {o[layout]['ms']:.3f} ms a round, collectives "
+                f"{o[layout]['coll_ms']:.3f} ms a round "
+                f"({o[layout]['collectives']:.1f} all_reduces), store "
+                f"{o[layout]['packed_mib']:.0f} MiB, peak device memory "
+                f"{o[layout]['peak_mib'] or 0:.1f} MiB"
+                for r, o in enumerate(outs))
+            + f" (over {VERIFY_TIMED_ROUNDS} rounds after the stop)")
+    log(f"[verify-cell] {card}: every query stopped (decided or at eps) "
+        f"after {stop} rounds on {VERIFY_RANKS} ranks x {VERIFY_BUDGET} "
+        f"tuples, verdicts {[int(d) for d in last['decided']]} = the "
+        f"truth's; error ratio <= eps after rounds "
+        f"{[accurate[q] for q in range(len(truth))]} (cap "
+        f"{VERIFY_ROUND_CAP}), estimates there "
+        f"{[round(e, 4) for e in estimates]} vs exact "
+        f"{[round(t, 4) for t in truth]}; the sharded "
+        f"state equal on every rank and card == CPU (integers equal, floats "
+        f"within float32 1e-5) over the first {parity} rounds; the "
+        f"replicated layout bit for bit the single-device engine over "
+        f"{recorded} rounds, kernel 1 launched once a round on each rank "
+        f"({outs[0]['replicated']['launches']}); {secs:.1f} s with the "
+        f"spawn")
+    return dict(ranks=outs, stop=stop, seconds=secs)
+
+
+# [shard]: smollm-135m's train_4k cell at its published widths (bf16,
+# remat) on a (data 2, model 2) mesh of 4 gloo ranks on the one card, the
+# batch cut from 256 x 4096 to 4 x 128; SHARD_STEPS steps, the first traced
+# (3 until a proof on a slow host took 17.5 s a step there)
+SHARD_ARCH = "smollm-135m"
+SHARD_MESH = (2, 2)
+SHARD_BATCH, SHARD_SEQ = 4, 128
+SHARD_STEPS = 2
+SHARD_PARITY_LAYERS = 4
+# the decode cell's parity: qwen3-0.6b at its published widths, 4 layers,
+# float32, B = 4, a 64-slot cache, 2 steps
+SHARD_DECODE_ARCH = "qwen3-0.6b"
+SHARD_DECODE = dict(batch=4, seq=64, steps=2)
+
+
+def shard_decode_parity(mesh, device, rank: int, reduced: bool):
+    """The decode cell of SHARD_DECODE_ARCH (float32, SHARD_PARITY_LAYERS
+    layers) on ``mesh`` over SHARD_DECODE's steps; on rank 0 the largest
+    |logit difference| to the single-device decode, relative to the
+    largest |logit|, else None."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.launch.steps import build_cell, materialize, run_cell
+
+    b, t = SHARD_DECODE["batch"], SHARD_DECODE["seq"]
+    cell = build_cell(SHARD_DECODE_ARCH, ShapeSpec("decode", t, b, "decode"),
+                      mesh, reduced=reduced,
+                      overrides=dict(compute_dtype="float32",
+                                     num_layers=SHARD_PARITY_LAYERS))
+    (module, cache, _, _), _ = materialize(cell, device, seed=0)
+    single = build_model(cell.cfg, device=device, seed=0) if rank == 0 \
+        else None
+    cache1 = (single.init_cache(b, t, dtype=torch.float32) if single
+              else None)
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for step in range(SHARD_DECODE["steps"]):
+        toks = torch.as_tensor(rng.integers(0, cell.cfg.vocab_size, (b, 1)),
+                               dtype=torch.int32, device=device)
+        pos = torch.full((b,), step, dtype=torch.int32, device=device)
+        lo, cache = run_cell(cell, module, cache,
+                             distribute(toks, cell.args[2].sharding),
+                             distribute(pos, cell.args[3].sharding))
+        lo = lo.full_tensor() if isinstance(lo, DTensor) else lo
+        if single is not None:
+            l1, cache1 = single.decode_step(cache1, toks, pos)
+            worst = max(worst, float((lo - l1).abs().max()
+                                     / l1.abs().max()))
+    return worst if rank == 0 else None
+
+
+def shard_rank(rank: int, ranks: int, init_file: str, out_dir: str,
+               device: str, reduced: bool) -> None:
+    """One rank of [shard]: the float32 parity step at
+    SHARD_PARITY_LAYERS layers (rank 0 also runs the single-device step on
+    its device), then the full-width cell: a traced step (collectives,
+    the residual stream's layout at each ``constrain("btd")``, before and
+    after it) and timed ones; the seconds of each part."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell, materialize, run_cell
+    from repro_torch.models import transformer
+    from repro_torch.models.convert import tree_from_module
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{init_file}", rank=rank,
+        world_size=ranks,
+        timeout=datetime.timedelta(seconds=SPMD_PG_TIMEOUT_S))
+    try:
+        mesh = make_debug_mesh(*SHARD_MESH, device_type=device)
+        shape = ShapeSpec("train_4k", SHARD_SEQ, SHARD_BATCH, "train")
+
+        def full(t):
+            return (t.full_tensor() if isinstance(t, DTensor) else t
+                    ).detach().to(torch.float64)
+
+        out, secs = {}, {}
+        t0 = time.perf_counter()
+        # 1. parity: float32 at SHARD_PARITY_LAYERS layers
+        cell = build_cell(SHARD_ARCH, shape, mesh, reduced=reduced,
+                          overrides=dict(compute_dtype="float32",
+                                         num_layers=SHARD_PARITY_LAYERS))
+        (state, batch), model = materialize(cell, device, seed=0)
+        new, m = run_cell(cell, state, batch)
+        got = dict(loss=full(m["loss"]), gnorm=full(m["grad_norm"]),
+                   params=[full(v) for v in leaves(new.params)],
+                   mu=[full(v) for v in leaves(new.opt.mu)])
+        b1 = {k: full(v).to(torch.int32).to(device)
+              for k, v in batch.items()}
+        del new, state
+        if rank == 0:
+            st1 = init_train_state(tree_from_module(model))
+            new1, m1 = cell.fn(st1, b1)
+
+            def worst(a_leaves, b_leaves):
+                return max(float((a - b.double()).norm()
+                                 / max(float(b.double().norm()), 1e-30))
+                           for a, b in zip(a_leaves, b_leaves))
+
+            out["parity"] = dict(
+                loss=abs(float(got["loss"] - m1["loss"].double()))
+                / abs(float(m1["loss"])),
+                gnorm=abs(float(got["gnorm"] - m1["grad_norm"].double()))
+                / abs(float(m1["grad_norm"])),
+                params=worst(got["params"], leaves(new1.params)),
+                mu=worst(got["mu"], leaves(new1.opt.mu)))
+            del new1, st1
+        del model, got, batch, b1
+        secs["parity"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["decode"] = shard_decode_parity(mesh, device, rank, reduced)
+        secs["decode"] = time.perf_counter() - t0
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # 2. the full-width cell
+        t0 = time.perf_counter()
+        cell = build_cell(SHARD_ARCH, shape, mesh, reduced=reduced)
+        (state, batch), model = materialize(cell, device, seed=0)
+        del model
+        secs["build"] = time.perf_counter() - t0
+        resident = sum(t.to_local().numel() * t.to_local().element_size()
+                       for t in leaves(state) if isinstance(t, DTensor))
+        whole = sum(t.numel() * t.element_size() for t in leaves(state))
+        # each constrain("btd"): the layout it was given, and its own
+        seen = []
+        real = transformer.constrain
+
+        def recording(x, kind):
+            y = real(x, kind)
+            if kind == "btd":
+                seen.append((tuple(x.placements), tuple(y.placements)))
+            return y
+
+        transformer.constrain = recording
+        t0 = time.perf_counter()
+        try:
+            with CommDebugMode() as comm:
+                state, m = run_cell(cell, state, batch)
+                sync(device)
+        finally:
+            transformer.constrain = real
+        secs["traced"] = time.perf_counter() - t0
+        counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+        losses = [float(full(m["loss"]))]
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(SHARD_STEPS - 1):
+            state, m = run_cell(cell, state, batch)
+            losses.append(float(full(m["loss"])))
+        sync(device)
+        out.update(
+            ms=(time.perf_counter() - t0) / (SHARD_STEPS - 1) * 1e3,
+            losses=losses, comm=counts, btd=seen, secs=secs,
+            resident_mib=resident / 2**20,
+            whole_mib=whole / 2**20, peak_mib=peak_mib(device),
+            layers=cell.cfg.num_layers, dtype=cell.cfg.compute_dtype,
+            remat=cell.cfg.remat, d_model=cell.cfg.d_model,
+            vocab=cell.cfg.vocab_size)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_shard(card: str, device: str = "cuda",
+                reduced: bool = False) -> dict:
+    """smollm-135m's train_4k cell built by ``build_cell`` on a (data 2,
+    model 2) debug mesh of 4 gloo ranks: the float32 step at
+    SHARD_PARITY_LAYERS layers equal to the single-device step on the card
+    (loss, grad_norm, the updated parameters and Adam's first moment
+    within 1e-5 relative, each leaf in norm: at the first step the moment
+    is the leaf's scaled gradient), every block's output reaching
+    ``constrain("btd")`` batch-sharded over data on a traced step, and the
+    SHARD_DECODE_ARCH decode cell equal to single-device decode within
+    1e-5 of the largest logit; ms a step, collectives a step, each rank's
+    peak memory and resident state."""
+    ranks = SHARD_MESH[0] * SHARD_MESH[1]
+    t0 = time.perf_counter()
+    outs = spawn_ranks(shard_rank, ranks, (device, reduced), "[shard]")
+    secs = time.perf_counter() - t0
+    par = outs[0]["parity"]
+    if not all(par[k] <= 1e-5 for k in ("loss", "gnorm", "params", "mu")):
+        raise AssertionError(f"[shard] the {SHARD_PARITY_LAYERS}-layer "
+                             f"float32 step differs from the single-device "
+                             f"step: {par}")
+    if not outs[0]["decode"] <= 1e-5:
+        raise AssertionError(f"[shard] the {SHARD_DECODE_ARCH} decode cell "
+                             f"differs from single-device decode: "
+                             f"{outs[0]['decode']} of the largest logit")
+    from torch.distributed.tensor import Replicate, Shard
+
+    # the first constrain("btd") takes the embedding's output, each later
+    # one a block's: a block must hand its output on batch-sharded over
+    # data (mesh dim 0); a gather of the activations there would be the
+    # failure constrain exists to stop, and constrain would hide it
+    want = (Shard(0), Replicate())
+    for rank, o in enumerate(outs):
+        blocks = o["btd"][1:]
+        if len(o["btd"]) != o["layers"] + 1:
+            raise AssertionError(f"[shard] rank {rank}: {len(o['btd'])} "
+                                 f"constrain('btd') calls in a step of "
+                                 f"{o['layers']} layers")
+        bad = [i for i, (given, kept) in enumerate(blocks, 1)
+               if given[0] != Shard(0) or kept != want]
+        if bad:
+            raise AssertionError(f"[shard] rank {rank}: the residual stream "
+                                 f"left its batch layout at blocks {bad}: "
+                                 f"{[o['btd'][i] for i in bad]}")
+        if not all(np.isfinite(o["losses"])):
+            raise AssertionError(f"[shard] rank {rank}: losses "
+                                 f"{o['losses']}")
+        if o["losses"] != outs[0]["losses"]:
+            raise AssertionError(f"[shard] rank {rank}: losses differ from "
+                                 f"rank 0's")
+    o = outs[0]
+    given = sorted({str(g) for g, _ in o["btd"][1:]})
+    log(f"[shard] {card}: {SHARD_ARCH} train_4k on a (data "
+        f"{SHARD_MESH[0]}, model {SHARD_MESH[1]}) mesh of {ranks} gloo "
+        f"ranks: {o['layers']} layers, d_model {o['d_model']}, vocab "
+        f"{o['vocab']}, {o['dtype']}, remat {o['remat']}, batch "
+        f"{SHARD_BATCH} x {SHARD_SEQ}; the {SHARD_PARITY_LAYERS}-layer "
+        f"float32 step == the single-device step on the card (loss "
+        f"{par['loss']:.2e}, grad_norm {par['gnorm']:.2e}, parameters "
+        f"{par['params']:.2e}, first moments {par['mu']:.2e} relative); "
+        f"the {SHARD_DECODE_ARCH} decode "
+        f"cell ({SHARD_PARITY_LAYERS} layers, float32, B = "
+        f"{SHARD_DECODE['batch']}, {SHARD_DECODE['steps']} steps) == "
+        f"single-device decode within {outs[0]['decode']:.2e} of the "
+        f"largest logit; every block's output batch over data at "
+        f"constrain('btd') (given {given}, "
+        f"the embedding's {o['btd'][0][0]}; "
+        f"{sum(g != k for g, k in o['btd'])} of {len(o['btd'])} calls "
+        f"redistributed); losses "
+        f"{[round(x, 4) for x in o['losses']]}; "
+        f"{o['ms']:.1f} ms a step (the untraced steps); collectives of "
+        f"the first step {o['comm']}")
+    log(f"[shard] {card}: per rank resident state "
+        + ", ".join(f"{x['resident_mib']:.1f}" for x in outs)
+        + f" MiB of {o['whole_mib']:.1f} MiB whole; peak device memory "
+        + ", ".join(f"{x['peak_mib'] or 0:.1f}" for x in outs)
+        + f" MiB; {secs:.1f} s with the spawn (rank 0's seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in o["secs"].items())
+        + ")")
+    return dict(ranks=outs, seconds=secs)
+
+
+def shard_phases(card: str, device: str = "cuda") -> dict:
+    """[verify-cell] and [shard], each with its seconds."""
+    t0 = time.perf_counter()
+    vc = phase_verify_cell(card, device)
+    t1 = time.perf_counter()
+    sh = phase_shard(card, device)
+    t2 = time.perf_counter()
+    log(f"[shard] phase seconds: [verify-cell] {t1 - t0:.1f}, [shard] "
+        f"{t2 - t1:.1f}")
+    return dict(verify=vc, shard=sh)
+
+
 def ml_phases(card: str) -> dict:
     """The ML plane's phases in order, each with its seconds."""
     out, secs = {}, {}
@@ -4498,6 +5108,9 @@ def main(argv=None) -> int:
                     help="build and the training phase only")
     ap.add_argument("--families", action="store_true",
                     help="build and the other model families' phases only")
+    ap.add_argument("--shard", action="store_true",
+                    help="build, the sharded verify cell and the sharded "
+                         "train step only")
     args = ap.parse_args(argv)
     kernels_only = args.kernels
     if not torch.cuda.is_available():
@@ -4515,6 +5128,10 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
 
     phase_build()
+    if args.shard:
+        shard_phases(card)
+        log("[done] --shard: build, [verify-cell] and [shard] passed")
+        return 0
     if args.train:
         t0 = time.perf_counter()
         phase_train(card)
@@ -4626,6 +5243,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ml = ml_phases(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard = shard_phases(card)
 
     report_times(card, times, stimes, gtimes, dep, gdep)
     log(f"[times] {card}: serving plane: [ptf] ASCII chain {ptf['rounds']} "
@@ -4662,6 +5282,9 @@ def main(argv=None) -> int:
                              "train": ml["train"]["launches"],
                              "families-train":
                                  ml["families-train"]["launches"],
+                             "verify-cell": [
+                                 o["replicated"]["launches"]
+                                 for o in shard["verify"]["ranks"]],
                              "examples": ml["examples"]["launches"]},
         "max_abs_err": max(r["max_abs_err_cols"] for r in checks
                            if r["max_abs_err_cols"] is not None),

@@ -7,8 +7,11 @@ so every path is testable on CPU:
 
 * **checkpoint/restart** — trainer saves atomically every N steps; on
   (injected) failure the trainer recomputes the mesh shape for the
-  surviving device count and restores the last committed checkpoint (onto
-  one device: resharding waits for the port's ``distributed/sharding.py``).
+  surviving device count and restores the last committed checkpoint (the
+  single-host trainer onto its one device, as the reference's; sharded
+  state reshards onto the new mesh through
+  ``train.checkpoint.restore(..., shardings=)`` with the layouts of
+  ``distributed.sharding``).
 * **elastic re-mesh** — :func:`best_mesh_shape` picks the largest valid
   (data, model) grid for the surviving chips, keeping the model axis intact
   first (TP size is fixed by weight shapes), then shrinking data parallelism.

@@ -26,7 +26,9 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import layout
 from repro_torch.models.layers import (
     apply_mrope, apply_rope, linear, pad_to, rms_norm)
 
@@ -128,9 +130,27 @@ def _grouped_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.reshape(b, s, hk * g, v.shape[-1])
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Masked grouped attention: q (B,S,Hq,D) over k, v (B,T,Hk,D) where
+    ``mask`` (B,1,1,S|1,T) holds -> (B,S,Hq,D) in q's dtype."""
+    scores = _grouped_scores(q, k) / math.sqrt(head_dim)       # (B,Hk,G,S,T)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+    return _grouped_out(probs, v)
+
+
+def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               mask: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """:func:`_attend`, on DTensors per rank (``layout.attend``)."""
+    return layout.attend(lambda *a: _attend(*a, head_dim), q, k, v, mask)
+
+
 def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
     """``einsum("...hk,hkd->...d", out, wo)``."""
     wo = p["wo"].to(out.dtype)
+    if isinstance(wo, DTensor):
+        return layout.contract(out, wo, 2)
     return torch.matmul(out.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
@@ -155,9 +175,9 @@ def full_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
         kv_positions = positions if x_kv is None else torch.arange(
             t, device=x.device).expand(b, t)
     q, k, v = _project_qkv(p, cfg, x, x_kv)
+    q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v)
     q, k = _rope(cfg, q, k, positions, kv_positions, positions3)
 
-    scores = _grouped_scores(q, k) / math.sqrt(cfg.head_dim)   # (B,Hk,G,S,T)
     mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool, device=x.device)
     if cfg.causal and not cfg.cross:
         mask &= (kv_positions[:, None, None, None, :]
@@ -167,9 +187,7 @@ def full_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
                  - kv_positions[:, None, None, None, :]) < cfg.window
     if seg_mask is not None:
         mask &= seg_mask[:, None, None]
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-    return _out_proj(p, _grouped_out(probs, v))
+    return _out_proj(p, _attention(q, k, v, mask, cfg.head_dim))
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +218,7 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     unwritten, in the future or outside the window are masked out."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)                       # (B,1,H,D)
+    q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v)
     if cfg.mrope_sections is not None:
         # text-phase decode: all three position streams advance together
         q, k = _rope(cfg, q, k, None, None, pos[None, :, None].expand(3, b, 1))
@@ -210,15 +229,13 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     length = ck.shape[1]
     slot = (pos % length).long()                            # (B,)
     bi = torch.arange(b, device=x.device)
-    ck.index_put_((bi, slot), k[:, 0].to(ck.dtype))
-    cv.index_put_((bi, slot), v[:, 0].to(cv.dtype))
-    cpos.index_put_((bi, slot), pos.to(cpos.dtype))
+    layout.write_slots(ck, bi, slot, k[:, 0].to(ck.dtype))
+    layout.write_slots(cv, bi, slot, v[:, 0].to(cv.dtype))
+    layout.write_slots(cpos, bi, slot, pos.to(cpos.dtype))
 
-    scores = _grouped_scores(q, ck.to(x.dtype)) / math.sqrt(cfg.head_dim)
     ok = (cpos >= 0) & (cpos <= pos[:, None])
     if cfg.window is not None:
         ok &= (pos[:, None] - cpos) < cfg.window
-    scores = torch.where(ok[:, None, None, None, :], scores, NEG_INF)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
-    out = _out_proj(p, _grouped_out(probs, cv.to(x.dtype)))
+    out = _out_proj(p, _attention(q, ck.to(x.dtype), cv.to(x.dtype),
+                                  ok[:, None, None, None, :], cfg.head_dim))
     return out, cache

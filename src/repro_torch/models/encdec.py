@@ -27,6 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.module import (
@@ -104,9 +105,11 @@ class EncDecLM(LMModule):
         x = enc_embeds.to(self.compute_dtype)
         x = x + L.sinusoidal_positions(s, self.cfg.d_model,
                                        x.device).to(x.dtype)[None]
+        x = constrain(x, "btd")
         for lp in layers:
-            x = (checkpoint(self._enc_block, lp, x, use_reentrant=False)
-                 if remat else self._enc_block(lp, x))
+            x = constrain(
+                checkpoint(self._enc_block, lp, x, use_reentrant=False)
+                if remat else self._enc_block(lp, x), "btd")
         return _ln(x, w, "enc_final")
 
     # ------------------------------------------------------------ decoder --
@@ -124,13 +127,14 @@ class EncDecLM(LMModule):
                      enc_out: torch.Tensor, remat: bool) -> torch.Tensor:
         s = tokens.shape[1]
         x = L.embed_apply(w, tokens).to(enc_out.dtype)
-        x = x + w["dec_pos"][:s].to(x.dtype)[None]
+        x = constrain(x + w["dec_pos"][:s].to(x.dtype)[None], "btd")
         for lp in layers:
-            x = (checkpoint(self._dec_block, lp, x, enc_out,
-                            use_reentrant=False)
-                 if remat else self._dec_block(lp, x, enc_out))
+            x = constrain(
+                checkpoint(self._dec_block, lp, x, enc_out,
+                           use_reentrant=False)
+                if remat else self._dec_block(lp, x, enc_out), "btd")
         x = _ln(x, w, "dec_final")
-        return L.unembed_apply(w, x, tied=True)
+        return constrain(L.unembed_apply(w, x, tied=True), "btv")
 
     @torch.no_grad()
     def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
@@ -216,6 +220,6 @@ class EncDecLM(LMModule):
             x = x + attn._out_proj(lp["cross_attn"],
                                    attn._grouped_out(probs, cv[i]))
             h = _ln(x, lp, "ln2")
-            x = x + mlp_apply(lp["mlp"], h, "gelu")
+            x = constrain(x + mlp_apply(lp["mlp"], h, "gelu"), "btd")
         x = _ln(x, w, "dec_final")
         return L.unembed_apply(w, x, tied=True), cache

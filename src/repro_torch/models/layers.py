@@ -17,6 +17,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import layout
 
 
 def pad_to(x: int, mult: int) -> int:
@@ -139,6 +142,8 @@ def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...d,d...->...", x, w)``: contract x's last dim with w's
     first (w of shape (d, *out)), w cast to x's dtype."""
+    if isinstance(w, DTensor):
+        return layout.contract(x, w.to(x.dtype), 1)
     out = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
     return out.reshape(x.shape[:-1] + w.shape[1:])
 
@@ -161,7 +166,12 @@ def gelu_mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens.long()]
+    """Rows ``tokens`` of the embedding table (a DTensor table through
+    ``layout.embedding``: its vocab gathered, then ``F.embedding``)."""
+    table = p["embedding"]
+    if isinstance(table, DTensor):
+        return layout.embedding(table, tokens)
+    return table[tokens.long()]
 
 
 def unembed_apply(p: dict, x: torch.Tensor, tied: bool = True) -> torch.Tensor:

@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -136,6 +137,7 @@ class DecoderLM(LMModule):
         the blocks' aux losses summed in float32)."""
         x = (L.embed_apply(w, tokens) if inputs_embeds is None
              else inputs_embeds).to(self.compute_dtype)
+        x = constrain(x, "btd")
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp in layers:
             if remat:
@@ -143,11 +145,12 @@ class DecoderLM(LMModule):
                                   use_reentrant=False)
             else:
                 x, a = self._block(lp, x, positions, positions3)
+            x = constrain(x, "btd")
             if a is not None:
                 aux = aux + a
         x = L.rms_norm(x, w["final_norm"])
         logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
-        return logits, aux
+        return constrain(logits, "btv"), aux
 
     @torch.no_grad()
     def forward(self, tokens: Optional[torch.Tensor],
@@ -203,7 +206,7 @@ class DecoderLM(LMModule):
         """tokens (B, 1), pos (B,) -> (logits (B,1,V), cache), the cache
         written in place."""
         w = self.compute_params()
-        x = self._embed(w, tokens)
+        x = constrain(self._embed(w, tokens), "btd")
         for i, lp in enumerate(w["layers"]):
             h = L.rms_norm(x, lp["ln1"])
             h, _ = attn.decode_attention(
@@ -211,7 +214,7 @@ class DecoderLM(LMModule):
                 {k: cache[k][i] for k in ("k", "v", "pos")}, pos)
             x = x + h
             h, _ = self._ffn(lp, L.rms_norm(x, lp["ln2"]), aux=False)
-            x = x + h
+            x = constrain(x + h, "btd")
         x = L.rms_norm(x, w["final_norm"])
         logits = L.unembed_apply(w, x, tied=self.cfg.tie_embeddings)
         return logits, cache

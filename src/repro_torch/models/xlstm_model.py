@@ -15,6 +15,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import layout
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.models import layers as L
 from repro_torch.models import xlstm as X
 from repro_torch.models.module import LMModule, param
@@ -38,11 +40,13 @@ class XLSTMLM(LMModule):
 
     def _run(self, w: dict, blocks, tokens: torch.Tensor,
              remat: bool) -> torch.Tensor:
-        x = self._embed(w, tokens)
+        x = constrain(self._embed(w, tokens), "btd")
         for kind, bp in zip(self.kinds, blocks):
             fwd = X.slstm_forward if kind == "slstm" else X.mlstm_forward
-            x = (checkpoint(fwd, bp, self.xcfg, x, use_reentrant=False)
-                 if remat else fwd(bp, self.xcfg, x))
+            fwd = layout.batch_local(fwd)
+            x = constrain(
+                checkpoint(fwd, bp, self.xcfg, x, use_reentrant=False)
+                if remat else fwd(bp, self.xcfg, x), "btd")
         x = L.rms_norm(x, w["final_norm"])
         return L.unembed_apply(w, x, tied=True)
 

@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.autoshard import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -106,16 +107,17 @@ class ZambaLM(LMModule):
 
     def _run(self, w: dict, layers, tokens: torch.Tensor,
              positions: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
-        x0 = self._embed(w, tokens)
+        x0 = constrain(self._embed(w, tokens), "btd")
         x = x0
         for lo, hi, si in self._spans():
             for lp in layers[lo:hi]:
-                x = (checkpoint(self._mamba_block, lp, x, use_reentrant=False)
-                     if remat else self._mamba_block(lp, x))
+                x = constrain(
+                    checkpoint(self._mamba_block, lp, x, use_reentrant=False)
+                    if remat else self._mamba_block(lp, x), "btd")
             if si is not None:
                 x = self._shared_block(w, x, x0, si, positions)
         x = L.rms_norm(x, w["final_norm"])
-        return L.unembed_apply(w, x, tied=True)
+        return constrain(L.unembed_apply(w, x, tied=True), "btv")
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,

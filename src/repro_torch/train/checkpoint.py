@@ -14,9 +14,14 @@ Layout:  <dir>/step_<N>/
 
 Restoring reads only ``arrays.npz`` and ``COMMIT``, as the reference's
 does, so a checkpoint written by either package restores in the other.
-The reference's ``shardings=`` argument (placing arrays on a new mesh)
-waits for the port's ``distributed/sharding.py``; ``restore`` puts every
-array on one device.
+
+Sharded state (DTensor leaves, ``launch/steps.py``): ``save`` gathers each
+DTensor leaf to its full array on every rank (a collective: every rank of
+the mesh calls ``save``), rank 0 of the process group writes, and every
+rank waits for the commit.  ``restore(..., shardings=)`` places each array
+on the *current* mesh with ``distribute_tensor`` (each rank keeps its own
+block), whatever mesh wrote it: this is where elastic resharding happens.
+Without ``shardings`` every array goes to one device (``device=``).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves_with_paths, unflatten
 
@@ -38,21 +44,40 @@ def _flatten_with_paths(tree) -> dict:
 
 
 def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
 
 
+def _ranks() -> tuple[int, bool]:
+    """(this process's rank, whether a process group is running)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), True
+    return 0, False
+
+
 def save(directory: str, step: int, state, extra: Optional[dict] = None,
          keep: int = 3) -> str:
-    """Write an atomic checkpoint; prune old ones to ``keep``."""
+    """Write an atomic checkpoint; prune old ones to ``keep``.  With
+    DTensor leaves every rank calls it and rank 0 writes."""
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
-    os.makedirs(tmp, exist_ok=True)
 
     leaves = _flatten_with_paths(state)
     arrays = {k: _numpy(v) for k, v in leaves.items() if hasattr(v, "shape")}
     scalars = {k: v for k, v in leaves.items() if not hasattr(v, "shape")}
+    rank, group = _ranks()
+    sharded = group and any(isinstance(v, DTensor) for v in leaves.values())
+    if sharded and rank != 0:
+        import torch.distributed as dist
+
+        dist.barrier()                      # rank 0 has committed
+        return final
+    os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": int(step),
@@ -72,6 +97,10 @@ def save(directory: str, step: int, state, extra: Optional[dict] = None,
     steps = sorted(all_steps(directory))
     for s in steps[:-keep]:
         shutil.rmtree(os.path.join(directory, f"step_{s}"), ignore_errors=True)
+    if sharded:
+        import torch.distributed as dist
+
+        dist.barrier()
     return final
 
 
@@ -91,11 +120,14 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, step: int, like, device=None):
+def restore(directory: str, step: int, like, device=None, shardings=None):
     """Restore into the structure of ``like`` (a tree template).
 
-    Each saved array becomes a tensor of its saved dtype on ``device``, or,
-    when ``device`` is None, on the device of the template leaf it replaces
+    ``shardings`` (a tree of ``distributed.sharding.NamedSharding`` of
+    ``like``'s structure; a None subtree places nothing) puts each array
+    on the current mesh as a DTensor of its layout.  Every other saved
+    array becomes a tensor of its saved dtype on ``device``, or, when
+    ``device`` is None, on the device of the template leaf it replaces
     (the CPU for a template leaf that is no tensor).  A template leaf with
     no saved array (e.g. a newly added state field) is kept."""
     path = os.path.join(directory, f"step_{step}")
@@ -103,11 +135,20 @@ def restore(directory: str, step: int, like, device=None):
         raise FileNotFoundError(f"checkpoint {path} not committed")
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: z[k] for k in z.files}
+    layouts = {} if shardings is None else _flatten_with_paths(shardings)
 
     new_leaves = []
     for key, template in _flatten_with_paths(like).items():
         if key not in arrays:
             new_leaves.append(template)
+            continue
+        layout = layouts.get(key)
+        if layout is not None:
+            from repro_torch.distributed.sharding import distribute
+
+            whole = torch.from_numpy(arrays[key]).to(
+                layout.mesh.device_type)
+            new_leaves.append(distribute(whole, layout))
             continue
         dev = device
         if dev is None:

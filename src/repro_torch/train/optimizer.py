@@ -16,6 +16,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -87,6 +88,11 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt: OptState):
     new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt.mu),
                           leaves(opt.nu)):
+        if isinstance(p, DTensor) and g.placements != p.placements:
+            # a sharded parameter's gradient in the parameter's layout
+            # (a partial sum reduced, a replicated one split), so the
+            # update and both moments keep that layout
+            g = g.redistribute(p.device_mesh, p.placements)
         g = g.to(torch.float32) * scale
         m = cfg.b1 * m + (1 - cfg.b1) * g
         v = cfg.b2 * v + (1 - cfg.b2) * g * g
