@@ -8,6 +8,8 @@
     python3 chip_smoke.py --families   # build and the other families only
     python3 chip_smoke.py --shard      # build, the sharded verify cell and
                                        # the sharded train step only
+    python3 chip_smoke.py --dryrun     # build, the sharded train step, a
+                                       # train step's time and the dry run
 
 Needs a CUDA device and ``nvcc``; exits non-zero, printing no result, when
 either is missing or any phase fails.  Phases:
@@ -224,6 +226,17 @@ either is missing or any phase fails.  Phases:
                equal to single-device decode within 1e-5 of the largest
                logit; ms a step, the first step's collectives, each
                rank's resident state and peak memory.
+26. dryrun    — ``launch/dryrun.py`` in a spawned process (its fake
+               process group is process-global; no card, no memory: meta
+               DTensors) prints three records: smollm-135m's train_4k cell
+               at full width on the 16 x 16 production mesh of a fake
+               256-rank group; [shard]'s own cell on a fake (data 2, model
+               2) group, whose state bytes a rank, read from the layouts,
+               must equal [shard]'s measured resident bytes on every rank
+               to the byte, and whose collectives by kind must equal
+               [shard]'s first step's; [train]'s step on one rank, whose
+               roofline bound (priced with ``roofline/hw.py``'s H100
+               constants) must not exceed [train]'s measured median step.
 
 ``--kernels`` runs phases 1, 2 and the kernel times of 15 on the same
 stores and exits 0 when they pass, printing no result lines.  ``--spmd``
@@ -231,7 +244,9 @@ runs phases 1, 2's rank-width checks, 3, 13 and 14 and exits 0 when they
 pass, printing no result lines.  ``--ml`` runs phases 1 and 16-23 and
 exits 0 when they pass, printing no result lines; ``--train`` runs phases
 1 and 20 the same way, ``--families`` phases 1, 21 and 22, ``--shard``
-phases 1, 24 and 25.
+phases 1, 24 and 25, ``--dryrun`` phases 1, 25, a median of
+TRAIN_TIME_REPS steps of [train]'s step at full width (no ``Trainer``)
+and 26.
 
 The line before the last is one JSON object describing every kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -289,6 +304,7 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.convert import tree_from_module  # noqa: E402
 from repro_torch.models.vlm import build_positions3  # noqa: E402
+from repro_torch.roofline.hw import H100_SXM  # noqa: E402
 from repro_torch.ola_ml import IngestGate, ola_eval  # noqa: E402
 from repro_torch.sampling.permutation import (  # noqa: E402
     chunk_seed, permutation_window_dyn)
@@ -406,11 +422,11 @@ def reset_launches() -> None:
 def launch_counts() -> dict:
     return {k.__name__.removesuffix("_cuda"): k.launches for k in KERNELS}
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and the float32
+# H100 SXM published peaks (roofline/hw.py): HBM rate and the float32
 # rate outside the tensor cores, which the kernel's integer and float
 # arithmetic runs on
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = H100_SXM.hbm_bw
+F32_OPS_PER_S = H100_SXM.peak_flops_f32
 FIELD_BYTES = 16
 
 
@@ -4963,7 +4979,7 @@ def shard_rank(rank: int, ranks: int, init_file: str, out_dir: str,
         out.update(
             ms=(time.perf_counter() - t0) / (SHARD_STEPS - 1) * 1e3,
             losses=losses, comm=counts, btd=seen, secs=secs,
-            resident_mib=resident / 2**20,
+            resident=resident, resident_mib=resident / 2**20,
             whole_mib=whole / 2**20, peak_mib=peak_mib(device),
             layers=cell.cfg.num_layers, dtype=cell.cfg.compute_dtype,
             remat=cell.cfg.remat, d_model=cell.cfg.d_model,
@@ -5057,6 +5073,154 @@ def phase_shard(card: str, device: str = "cuda",
     return dict(ranks=outs, seconds=secs)
 
 
+# ---------------------------------------------------------------- dry run ----
+# launch/dryrun.py's records on fake process groups (meta DTensors: no
+# card, no memory), one spawned process: smollm-135m's train_4k cell at
+# full width on the 16 x 16 production mesh, [shard]'s own cell on its
+# (data 2, model 2) mesh, [train]'s step on one rank
+DRYRUN_PRODUCTION = dict(arch=SHARD_ARCH, shape="train_4k", ranks=256)
+COMM_KINDS = {"all_gather_into_tensor": "all-gather",
+              "_allgather_base_": "all-gather",
+              "all_reduce": "all-reduce",
+              "reduce_scatter_tensor": "reduce-scatter",
+              "all_to_all_single": "all-to-all",
+              "shard_dim_alltoall": "all-to-all"}
+
+
+def comm_kinds(counts: dict) -> dict:
+    """``CommDebugMode``'s counts (keyed by op) by collective kind."""
+    out: dict = {}
+    for op, n in counts.items():
+        name = str(op).rsplit(".", 1)[-1]
+        kind = COMM_KINDS.get(name, name)
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def dryrun_proc(rank: int, ranks: int, init_file: str, out_dir: str) -> None:
+    """[dryrun]'s process: the three records, each on its own fake group,
+    and the seconds of each."""
+    import pickle
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cells = (
+        ("production", DRYRUN_PRODUCTION["arch"], DRYRUN_PRODUCTION["ranks"],
+         None, DRYRUN_PRODUCTION["shape"]),
+        ("shard", SHARD_ARCH, SHARD_MESH[0] * SHARD_MESH[1], SHARD_MESH,
+         ShapeSpec("train_4k", SHARD_SEQ, SHARD_BATCH, "train")),
+        ("train", TRAIN_ARCH, 1, (1, 1),
+         ShapeSpec("train_4k", TRAIN["seq_len"], TRAIN["batch"], "train")))
+    out, secs = {}, {}
+    for name, arch, world, mesh_shape, shape in cells:
+        t0 = time.perf_counter()
+        with dryrun.fake_group(world):
+            mesh = (make_debug_mesh(*mesh_shape, device_type="cpu")
+                    if mesh_shape else None)
+            out[name] = dryrun.run_cell(arch, shape, mesh=mesh)
+        secs[name] = time.perf_counter() - t0
+    out["secs"] = secs
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def train_step_ms(device: str = "cuda") -> float:
+    """[train]'s step (TRAIN_ARCH at its published widths, TRAIN's batch,
+    ``make_train_step`` as ``Trainer`` builds it) from its initial state:
+    the median ms of TRAIN_TIME_REPS steps."""
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=device, seed=ML_SEED)
+    box = [init_train_state(tree_from_module(model))]
+    step = make_train_step(model.loss_fn, AdamWConfig())
+    batch = {k: v.to(device) for k, v in token_batches(
+        cfg, 1, (TRAIN["batch"], TRAIN["seq_len"]), seed=1)[0].items()}
+
+    def one():
+        box[0], _ = step(box[0], batch)
+
+    return median_ms(one, TRAIN_TIME_REPS, device)
+
+
+def phase_dryrun(card: str, shard: dict, train_ms: float) -> dict:
+    """launch/dryrun.py's three records (``dryrun_proc``): each priced with
+    roofline/hw.py's H100 constants, finite; [shard]'s cell's state bytes
+    a rank, from its layouts, equal to ``shard``'s measured resident bytes
+    on every rank, and its collectives by kind equal to ``shard``'s first
+    step's; [train]'s step's roofline bound at or below ``train_ms``, its
+    measured median."""
+    t0 = time.perf_counter()
+    out = spawn_ranks(dryrun_proc, 1, (), "[dryrun]")[0]
+    secs = time.perf_counter() - t0
+    prod, cell, one = out["production"], out["shard"], out["train"]
+    for tag, rec in (("production", prod), ("shard", cell), ("train", one)):
+        rf = rec["roofline"]
+        terms = [rf[k] for k in ("compute_s", "memory_s", "collective_s")]
+        if not (np.all(np.isfinite(terms)) and rf["hlo_flops_per_chip"] > 0
+                and rf["hlo_bytes_per_chip"] > 0):
+            raise AssertionError(f"[dryrun] {tag}: roofline {rf}")
+    want_mesh = {"data": 16, "model": 16}
+    if prod["chips"] != DRYRUN_PRODUCTION["ranks"] or prod["mesh"] != \
+            want_mesh:
+        raise AssertionError(f"[dryrun] production cell on {prod['mesh']}")
+    predicted = [n for n, k in cell["memory"]["state_bytes_by_rank"]
+                 for _ in range(k)]
+    measured = [o["resident"] for o in shard["ranks"]]
+    if predicted != measured:
+        raise AssertionError(f"[dryrun] [shard]'s cell: state bytes a rank "
+                             f"{predicted} from the layouts, {measured} "
+                             f"resident in [shard]")
+    shard_comm = comm_kinds(shard["ranks"][0]["comm"])
+    if cell["collective_counts"] != shard_comm:
+        raise AssertionError(f"[dryrun] [shard]'s cell: collectives "
+                             f"{cell['collective_counts']} in the walk, "
+                             f"{shard_comm} in [shard]'s first step")
+    bound_ms = one["roofline"]["bound_s"] * 1e3
+    if not bound_ms <= train_ms:
+        raise AssertionError(f"[dryrun] [train]'s roofline bound "
+                             f"{bound_ms:.3f} ms exceeds its measured step "
+                             f"{train_ms:.3f} ms")
+
+    def terms(rec):
+        rf = rec["roofline"]
+        return (f"compute {rf['compute_s'] * 1e3:.3f} ms, memory "
+                f"{rf['memory_s'] * 1e3:.3f} ms, collectives "
+                f"{rf['collective_s'] * 1e3:.3f} ms ({rf['dominant']} "
+                f"dominant); matmul FLOPs a rank "
+                f"{rf['hlo_flops_per_chip']:.6g} in {rf['dot_count']} ops, "
+                f"HBM bytes a rank {rf['hlo_bytes_per_chip']:.6g}; model "
+                f"FLOPs {rf['model_flops']:.6g}, useful "
+                f"{rf['useful_flops_ratio']:.6g}, roofline fraction "
+                f"{rf['roofline_fraction']:.6g}")
+
+    rf = prod["roofline"]
+    log(f"[dryrun] modeled with the H100's constants (roofline/hw.py: "
+        f"{H100_SXM.name}), not measured; records on fake process groups, "
+        f"meta DTensors")
+    log(f"[dryrun] {prod['arch']} {prod['shape']} at full width on the "
+        f"{prod['mesh']} mesh of {prod['chips']} fake ranks: built in "
+        f"{prod['lower_s']} s, step walked in {prod['compile_s']} s; "
+        f"arguments {prod['memory']['argument_bytes']} B a rank (state "
+        f"{prod['memory']['state_bytes_by_rank']}); collectives "
+        f"{prod['collective_counts']}, NVLink "
+        f"{rf['collective_detail']['nvlink_bytes']:.6g} B, inter-node "
+        f"{rf['collective_detail']['inter_node_bytes']:.6g} B; {terms(prod)}")
+    log(f"[dryrun] [shard]'s cell (batch {SHARD_BATCH} x {SHARD_SEQ} on "
+        f"{cell['mesh']}): state bytes a rank from the layouts {predicted} "
+        f"== [shard]'s resident bytes {measured}; collectives a step "
+        f"{cell['collective_counts']} (the walk, on a CPU-typed mesh) == "
+        f"[shard]'s first step's {shard_comm} (CommDebugMode, the card's "
+        f"gloo mesh); {terms(cell)}")
+    log(f"[dryrun] {card}: [train]'s step (batch {TRAIN['batch']} x "
+        f"{TRAIN['seq_len']}, one rank): roofline bound {bound_ms:.3f} ms "
+        f"<= measured median {train_ms:.3f} ms (fraction "
+        f"{bound_ms / train_ms:.4f}); {terms(one)}")
+    log(f"[dryrun] {secs:.1f} s with the spawn (cells: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()) + ")")
+    return dict(records=out, seconds=secs, bound_ms=bound_ms)
+
+
 def shard_phases(card: str, device: str = "cuda") -> dict:
     """[verify-cell] and [shard], each with its seconds."""
     t0 = time.perf_counter()
@@ -5111,6 +5275,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shard", action="store_true",
                     help="build, the sharded verify cell and the sharded "
                          "train step only")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="build, the sharded train step, a train step's "
+                         "time and the dry run only")
     args = ap.parse_args(argv)
     kernels_only = args.kernels
     if not torch.cuda.is_available():
@@ -5128,6 +5295,14 @@ def main(argv=None) -> int:
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
 
     phase_build()
+    if args.dryrun:
+        sh = phase_shard(card)
+        ms = train_step_ms()
+        log(f"[dryrun] {card}: [train]'s step from its initial state "
+            f"{ms:.3f} ms (median of {TRAIN_TIME_REPS})")
+        phase_dryrun(card, sh, ms)
+        log("[done] --dryrun: build, [shard] and [dryrun] passed")
+        return 0
     if args.shard:
         shard_phases(card)
         log("[done] --shard: build, [verify-cell] and [shard] passed")
@@ -5246,6 +5421,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shard = shard_phases(card)
+    phase_dryrun(card, shard["shard"], ml["train"]["step_ms"])
 
     report_times(card, times, stimes, gtimes, dep, gdep)
     log(f"[times] {card}: serving plane: [ptf] ASCII chain {ptf['rounds']} "

@@ -188,9 +188,14 @@ def write_slots(buf, bi: torch.Tensor, slot: torch.Tensor, val) -> None:
         if d == 1:
             lo += mesh.get_local_rank(md) * local.shape[1]
     s = s - lo
+    # a row whose slot another rank holds writes its own value back at a
+    # slot of this block: no data-dependent shapes (the dry run's meta
+    # tensors have no values)
     ok = (s >= 0) & (s < local.shape[1])
+    s = s.clamp(0, local.shape[1] - 1)
     rows = torch.arange(local.shape[0], device=local.device)
-    local.index_put_((rows[ok], s[ok]), v[ok])
+    keep = ok.reshape(ok.shape + (1,) * (v.dim() - 1))
+    local.index_put_((rows, s), torch.where(keep, v, local[rows, s]))
 
 
 def expert_ffn(fn, buf, wg, wu, wd):

@@ -365,15 +365,21 @@ def materialize(cell: Cell, device, seed: int = 0) -> tuple:
     (random targets: labels equal to the tokens would let a tied
     embedding predict them near-perfectly at init), normal embeddings
     from the same generator, ``build_positions3``'s M-RoPE ids, zero
-    decode positions.  Returns ``(args, model)``: the module built on
-    ``device``, whose parameters a decode cell has replaced by
+    decode positions.  On the ``meta`` device the arguments are abstract:
+    every leaf is an uninitialised meta tensor of its shape and layout,
+    and no host array of the global batch is made (at ``prefill_32k``
+    that would run to gigabytes).  Returns ``(args, model)``: the module
+    built on ``device``, whose parameters a decode cell has replaced by
     DTensors."""
     model = build_model(cell.cfg, device=device, seed=seed)
     rng = np.random.default_rng(seed)
     spec = cell.spec
+    abstract = torch.device(device).type == "meta"
 
     def data(a: ArgSpec, name: str = "") -> torch.Tensor:
-        if a.dtype == torch.int32 and name in ("tokens", "labels"):
+        if abstract:
+            t = torch.empty(a.shape, dtype=a.dtype, device="meta")
+        elif a.dtype == torch.int32 and name in ("tokens", "labels"):
             t = torch.as_tensor(rng.integers(0, cell.cfg.vocab_size,
                                              a.shape), dtype=torch.int32)
         elif a.dtype.is_floating_point:
@@ -403,7 +409,7 @@ def materialize(cell: Cell, device, seed: int = 0) -> tuple:
             first = map_specs(lambda ax, t, a: distribute(t, a.sharding),
                               logical_specs(model), params, state_or_params)
         batch = {k: data(a, k) for k, a in sorted(cell.args[1].items())}
-        if "positions3" in batch:
+        if "positions3" in batch and not abstract:
             from repro_torch.models.vlm import build_positions3
 
             b, s = cell.args[1]["positions3"].shape[1:]

@@ -1,0 +1,232 @@
+"""The port's dry run (``repro_torch.launch.dryrun``) on fake process
+groups in this process (meta DTensors: no memory, no communication).
+
+* Per-rank FLOPs: the reduced smollm-135m train cell at (8, 64) counts on
+  a fake (1, 1) mesh the single-device step's 1,006,632,960 matmul FLOPs
+  (its loss and gradient alone count the same);
+  on a fake (4, 2) mesh every rank holds blocks of rank 0's shapes (so
+  runs rank 0's ops), and the 8 ranks together count the single-device
+  step's FLOPs plus what the model axis
+  replicates: the reduced config's one KV head does not split over 2
+  ranks, so attention (its ``bmm``s) and the K and V projections run
+  whole on both model ranks (``distributed/layout.py``).
+* A record of that cell on the (4, 2) mesh has the reference's keys
+  (read from ``repro/launch/dryrun.py``'s source and its
+  ``analyze_lowered``), its argument bytes equal the local bytes of the
+  DTensors ``materialize`` makes for the same layouts, and its collective
+  counts equal ``CommDebugMode``'s (which reads each shard-dim
+  all-to-all on a CPU-typed mesh as DTensor's fallback all-gather).
+* The same for the sharded verify cell at a cut chunk count (16 chunks of
+  4,096 tuples; its argument bytes from the production layouts: the
+  replicated state, the rank's 1,024 of 4,096 chunks, its worker's speed).
+* ``scripts/roofline_table.py`` reads a port record unchanged.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import ShapeSpec
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SHAPE = ShapeSpec("train_4k", 64, 8, "train")
+SINGLE_DEVICE_FLOPS = 1_006_632_960
+CUT = {"n_chunks": 16, "m_per_chunk": 4096}
+
+
+def _local_bytes(tree):
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+
+    return sum(t.to_local().numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, DTensor))
+
+
+def _single_device_walk():
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import tree_from_module
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline.dispatch_walk import walk
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (
+        init_train_state, make_train_step, value_and_grad)
+
+    cfg = get_config("smollm-135m", reduced=True)
+    model = build_model(cfg, device="meta")
+    toks = torch.empty((SHAPE.global_batch, SHAPE.seq_len),
+                       dtype=torch.int32, device="meta")
+    state = init_train_state(tree_from_module(model))
+    batch = {"tokens": toks, "labels": toks}
+    _, w = walk(make_train_step(model.loss_fn, AdamWConfig()), state, batch)
+    _, g = walk(value_and_grad, model.loss_fn, state.params, batch)
+    return cfg, w, g
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Every drive in sequence (a process has one default group)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.steps import build_cell, materialize
+
+    out = {}
+    out["cfg"], out["single"], out["grad"] = _single_device_walk()
+    with dryrun.fake_group(1):
+        out["one"] = dryrun.run_cell("smollm-135m", SHAPE, reduced=True,
+                                     mesh=make_debug_mesh(1, 1, "cpu"))
+    with dryrun.fake_group(8):
+        mesh = make_debug_mesh(4, 2, "cpu")
+        with CommDebugMode() as comm:
+            out["rank0"] = dryrun.run_cell("smollm-135m", SHAPE,
+                                           reduced=True, mesh=mesh)
+        out["comm"] = dict(comm.get_comm_counts())
+        cell = build_cell("smollm-135m", SHAPE, mesh, reduced=True)
+        args, _ = materialize(cell, "meta")
+        out["dtensor_bytes"] = _local_bytes(args)
+        out["dtensor_state_bytes"] = _local_bytes(args[0])
+        with CommDebugMode() as comm:
+            out["verify"] = dryrun.run_verify_cell(
+                "sharded", device="cpu", mesh=mesh, cut=CUT)
+        out["verify_comm"] = dict(comm.get_comm_counts())
+        out["args_bytes_by_rank"] = [dryrun.arg_bytes(cell.args, c)
+                                     for c in dryrun.rank_coords(mesh)]
+    return out
+
+
+def _flops(rec):
+    return rec["roofline"]["hlo_flops_per_chip"]
+
+
+def test_one_rank_counts_the_single_device_step(runs):
+    assert runs["single"]["matmul_flops"] == SINGLE_DEVICE_FLOPS
+    # AdamW's update has no matmul: the step's are its loss and gradient
+    assert runs["grad"]["matmul_flops"] == SINGLE_DEVICE_FLOPS
+    assert _flops(runs["one"]) == SINGLE_DEVICE_FLOPS
+    assert runs["one"]["collective_counts"] == {}
+
+
+def test_ranks_sum_to_the_single_device_step_and_what_is_replicated(runs):
+    cfg, single = runs["cfg"], runs["single"]
+    # every rank holds blocks of one shape, so every rank runs rank 0's ops
+    assert len(set(runs["args_bytes_by_rank"])) == 1
+    model_ranks = 2
+    assert cfg.num_kv_heads % model_ranks != 0
+    attention = single["flops_by_op"]["aten.bmm"]
+    tokens = SHAPE.global_batch * SHAPE.seq_len
+    kv = cfg.num_kv_heads * cfg.head_dim_
+    # k and v, forward and the two gradients, every layer
+    kv_proj = cfg.num_layers * 2 * 3 * (2 * tokens * cfg.d_model * kv)
+    replicated = (model_ranks - 1) * (attention + kv_proj)
+    assert 8 * _flops(runs["rank0"]) == SINGLE_DEVICE_FLOPS + replicated
+
+
+def _reference_record_keys(fn_name: str):
+    """Top-level and ``memory`` keys of the reference's dry-run record
+    (``record = {...}`` in ``fn_name`` of ``repro/launch/dryrun.py``)."""
+    with open(os.path.join(ROOT, "src", "repro", "launch", "dryrun.py")) as f:
+        tree = ast.parse(f.read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    rec = next(n.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+               and getattr(n.targets[0], "id", None) == "record")
+    top = {k.value for k in rec.keys}
+    mem = next(v for k, v in zip(rec.keys, rec.values)
+               if k.value == "memory")
+    return top, {k.value for k in mem.keys}
+
+
+def _roofline_keys():
+    from repro.roofline.analysis import analyze_lowered
+
+    class Compiled:
+        def cost_analysis(self):
+            return {}
+
+        def as_text(self):
+            return "ENTRY %main {\n}\n"
+
+    return set(analyze_lowered(None, Compiled(), "smollm-135m", "train_4k",
+                               1)["roofline"])
+
+
+@pytest.mark.parametrize("name,ref_fn", [("rank0", "run_cell"),
+                                         ("verify", "run_verify_cell")])
+def test_record_has_reference_keys(runs, name, ref_fn):
+    rec = runs[name]
+    top, mem = _reference_record_keys(ref_fn)
+    assert top | {"roofline"} <= set(rec)
+    assert mem <= set(rec["memory"])
+    assert _roofline_keys() <= set(rec["roofline"])
+    json.dumps(rec)
+
+
+def test_argument_bytes_equal_the_layouts_local_bytes(runs):
+    rec = runs["rank0"]
+    assert rec["memory"]["argument_bytes"] == runs["dtensor_bytes"]
+    assert rec["memory"]["state_bytes_by_rank"] == [
+        [runs["dtensor_state_bytes"], 8]]
+    assert rec["chips"] == 8 and rec["mesh"] == {"data": 4, "model": 2}
+
+
+def test_verify_cell_argument_bytes(runs):
+    from repro_torch.launch.verify_cell import (
+        local_state, production_verify_program)
+
+    program = production_verify_program(workers=4, device="cpu")[0]
+    state = sum(t.numel() * t.element_size()
+                for t in torch.utils._pytree.tree_leaves(
+                    local_state(program, 0)) if isinstance(t, torch.Tensor))
+    packed = (4096 // 4) * 65536 * 96
+    speeds = 1 * 4
+    rec = runs["verify"]
+    assert rec["memory"]["argument_bytes"] == state + packed + speeds
+    assert rec["memory"]["state_bytes_by_rank"] == [[state, 8]]
+    assert rec["reduced"] == CUT
+    assert rec["roofline"]["model_flops"] is None
+
+
+def _kinds(counts: dict) -> dict:
+    names = {"all_gather_into_tensor": "all-gather",
+             "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+             "reduce_scatter_tensor": "reduce-scatter",
+             "shard_dim_alltoall": "all-to-all"}
+    out = {}
+    for op, n in counts.items():
+        kind = names[str(op).rsplit(".", 1)[-1]]
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def test_collective_counts_equal_comm_debug_mode(runs):
+    got = dict(runs["rank0"]["collective_counts"])
+    want = _kinds(runs["comm"])
+    # a CPU-typed mesh runs each shard-dim all-to-all as an all-gather
+    got["all-gather"] = got.get("all-gather", 0) + got.pop("all-to-all", 0)
+    assert got == want
+    assert runs["rank0"]["roofline"]["collective_detail"]["count"] == sum(
+        runs["rank0"]["collective_counts"].values())
+    assert runs["verify"]["collective_counts"] == _kinds(
+        runs["verify_comm"]) == {"all-reduce": 3}
+
+
+def test_roofline_table_reads_a_port_record(runs, tmp_path):
+    out = tmp_path / "results" / "dryrun"
+    out.mkdir(parents=True)
+    (out / "smollm-135m__train_4k__pod.json").write_text(
+        json.dumps(runs["rank0"]))
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(os.path.join(
+            ROOT, "scripts", "roofline_table.py"))],
+        cwd=tmp_path, capture_output=True, text=True, timeout=60)
+    assert res.returncode == 0, res.stderr
+    rows = [r for r in res.stdout.splitlines()
+            if r.startswith("| smollm-135m | train_4k |")]
+    assert len(rows) == 1
+    assert f"| {runs['rank0']['roofline']['dominant'][:-2]} |" in rows[0]

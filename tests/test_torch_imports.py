@@ -64,6 +64,8 @@ def test_port_has_modules():
                  "distributed/sharding.py", "distributed/autoshard.py",
                  "distributed/layout.py", "launch/mesh.py",
                  "launch/steps.py", "launch/verify_cell.py",
+                 "launch/dryrun.py", "roofline/hw.py",
+                 "roofline/analysis.py", "roofline/dispatch_walk.py",
                  "examples/train_with_verification.py", "tree.py"):
         assert must in names
 
