@@ -3457,6 +3457,26 @@ def reset_peak(device) -> None:
         torch.cuda.reset_peak_memory_stats()
 
 
+def step_mark(device):
+    """Before a step: (bytes allocated, the peak since the last reset),
+    then the peak reset; None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    torch.cuda.synchronize()
+    mark = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return mark
+
+
+def step_high(device, mark):
+    """After a step: its own high-water mark in bytes above what was
+    allocated at ``mark`` (None off the card)."""
+    if mark is None:
+        return None
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - mark[0]
+
+
 def ml_config(layers: int | None = None, dtype: str | None = None):
     cfg = get_config(ML_ARCH)
     kw = {}
@@ -4054,9 +4074,10 @@ def phase_train(card: str, device: str = "cuda", cfg=None) -> dict:
                     for t in leaves(state)) / 2**20
     resident = (torch.cuda.memory_allocated() / 2**20
                 if torch.device(device).type == "cuda" else None)
-    reset_peak(device)
+    mark = step_mark(device)
     t0 = time.perf_counter()
     step_ms = median_ms(one_step, TRAIN_TIME_REPS, device)
+    step_bytes = step_high(device, mark)
     peak = peak_mib(device)
     t1 = time.perf_counter()
     n_ops = count_aten_ops(one_step)
@@ -4083,6 +4104,7 @@ def phase_train(card: str, device: str = "cuda", cfg=None) -> dict:
         f"{secs[2]:.1f} s")
     return dict(parity=parity, launches=launches, steps=result["steps"],
                 step_ms=step_ms, tok_per_s=tokens / step_ms * 1e3,
+                step_bytes=step_bytes,
                 ops=n_ops, busy=busy, peak_mib=peak, run_peak_mib=run_peak,
                 state_mib=state_mib, resident_mib=resident,
                 save_s=[x["s"] for x in saves], restore_s=restores[0]["s"],
@@ -4960,6 +4982,9 @@ def shard_rank(rank: int, ranks: int, init_file: str, out_dir: str,
             return y
 
         transformer.constrain = recording
+        # each step's own high-water mark above what is allocated before
+        # it (the first from here, past materialization)
+        mark = step_mark(device)
         t0 = time.perf_counter()
         try:
             with CommDebugMode() as comm:
@@ -4968,19 +4993,28 @@ def shard_rank(rank: int, ranks: int, init_file: str, out_dir: str,
         finally:
             transformer.constrain = real
         secs["traced"] = time.perf_counter() - t0
+        step_bytes = [step_high(device, mark)]
         counts = {str(k): v for k, v in comm.get_comm_counts().items()}
         losses = [float(full(m["loss"]))]
         sync(device)
+        mark2 = step_mark(device)
         t0 = time.perf_counter()
         for _ in range(SHARD_STEPS - 1):
             state, m = run_cell(cell, state, batch)
             losses.append(float(full(m["loss"])))
         sync(device)
+        ms = (time.perf_counter() - t0) / (SHARD_STEPS - 1) * 1e3
+        step_bytes.append(step_high(device, mark2))
+        # the peak since before materialization, as before the marks
+        peak = (None if mark is None else
+                max(mark[1], mark2[1], torch.cuda.max_memory_allocated())
+                / 2**20)
         out.update(
-            ms=(time.perf_counter() - t0) / (SHARD_STEPS - 1) * 1e3,
-            losses=losses, comm=counts, btd=seen, secs=secs,
+            ms=ms, losses=losses, comm=counts, btd=seen, secs=secs,
             resident=resident, resident_mib=resident / 2**20,
-            whole_mib=whole / 2**20, peak_mib=peak_mib(device),
+            whole_mib=whole / 2**20, peak_mib=peak,
+            allocated_before=None if mark is None else mark[0],
+            step_bytes=step_bytes,
             layers=cell.cfg.num_layers, dtype=cell.cfg.compute_dtype,
             remat=cell.cfg.remat, d_model=cell.cfg.d_model,
             vocab=cell.cfg.vocab_size)
@@ -5063,10 +5097,19 @@ def phase_shard(card: str, device: str = "cuda",
         f"{[round(x, 4) for x in o['losses']]}; "
         f"{o['ms']:.1f} ms a step (the untraced steps); collectives of "
         f"the first step {o['comm']}")
+
+    def mib(b):
+        return "not measured" if b is None else f"{b / 2**20:.1f}"
+
     log(f"[shard] {card}: per rank resident state "
         + ", ".join(f"{x['resident_mib']:.1f}" for x in outs)
         + f" MiB of {o['whole_mib']:.1f} MiB whole; peak device memory "
         + ", ".join(f"{x['peak_mib'] or 0:.1f}" for x in outs)
+        + " MiB (materialization included); allocated before the first "
+        + "step " + ", ".join(mib(x["allocated_before"]) for x in outs)
+        + " MiB; each step's own high-water mark above what was allocated "
+        + "before it, steps 1 and 2: "
+        + ", ".join("/".join(mib(b) for b in x["step_bytes"]) for x in outs)
         + f" MiB; {secs:.1f} s with the spawn (rank 0's seconds: "
         + ", ".join(f"{k} {v:.1f}" for k, v in o["secs"].items())
         + ")")
@@ -5077,7 +5120,8 @@ def phase_shard(card: str, device: str = "cuda",
 # launch/dryrun.py's records on fake process groups (meta DTensors: no
 # card, no memory), one spawned process: smollm-135m's train_4k cell at
 # full width on the 16 x 16 production mesh, [shard]'s own cell on its
-# (data 2, model 2) mesh, [train]'s step on one rank
+# (data 2, model 2) mesh, [train]'s step on one rank; and [train]'s plain
+# step (train_step_ms's program, no mesh) walked on meta for its memory
 DRYRUN_PRODUCTION = dict(arch=SHARD_ARCH, shape="train_4k", ranks=256)
 COMM_KINDS = {"all_gather_into_tensor": "all-gather",
               "_allgather_base_": "all-gather",
@@ -5121,15 +5165,40 @@ def dryrun_proc(rank: int, ranks: int, init_file: str, out_dir: str) -> None:
                     if mesh_shape else None)
             out[name] = dryrun.run_cell(arch, shape, mesh=mesh)
         secs[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train_plain"] = train_step_walk()
+    secs["train_plain"] = time.perf_counter() - t0
     out["secs"] = secs
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def train_step_ms(device: str = "cuda") -> float:
+def train_step_walk() -> dict:
+    """[train]'s step as ``train_step_ms`` runs it, walked on the meta
+    device with the CUDA caching allocator's granule: the walk's memory
+    (``DispatchWalk.memory``), the state and the batch held."""
+    from repro_torch.roofline.dispatch_walk import (
+        CUDA_ALLOC_GRANULE, DispatchWalk)
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device="meta", seed=ML_SEED)
+    state = init_train_state(tree_from_module(model))
+    step = make_train_step(model.loss_fn, AdamWConfig())
+    batch = {k: torch.empty((TRAIN["batch"], TRAIN["seq_len"]),
+                            dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with DispatchWalk(hold=(state, batch),
+                      granule=CUDA_ALLOC_GRANULE) as w:
+        step(state, batch)
+    return w.memory()
+
+
+def train_step_ms(device: str = "cuda") -> tuple:
     """[train]'s step (TRAIN_ARCH at its published widths, TRAIN's batch,
     ``make_train_step`` as ``Trainer`` builds it) from its initial state:
-    the median ms of TRAIN_TIME_REPS steps."""
+    the median ms of TRAIN_TIME_REPS steps, and the steps' own high-water
+    mark in bytes above what is allocated before them (after one step
+    that warms the process up)."""
     cfg = get_config(TRAIN_ARCH)
     model = build_model(cfg, device=device, seed=ML_SEED)
     box = [init_train_state(tree_from_module(model))]
@@ -5140,16 +5209,40 @@ def train_step_ms(device: str = "cuda") -> float:
     def one():
         box[0], _ = step(box[0], batch)
 
-    return median_ms(one, TRAIN_TIME_REPS, device)
+    one()
+    mark = step_mark(device)
+    ms = median_ms(one, TRAIN_TIME_REPS, device)
+    return ms, step_high(device, mark)
 
 
-def phase_dryrun(card: str, shard: dict, train_ms: float) -> dict:
+# the walk's temp_bytes against a step's measured high-water mark
+DRYRUN_MEMORY_TOL = 0.10
+
+
+def memory_gaps(tag: str, predicted: int, measured: list) -> list:
+    """``(predicted - measured) / measured`` for each rank's measured
+    step high-water mark; raises if one is past DRYRUN_MEMORY_TOL."""
+    gaps = [(predicted - m) / m for m in measured]
+    bad = [r for r, g in enumerate(gaps) if abs(g) > DRYRUN_MEMORY_TOL]
+    if bad:
+        raise AssertionError(
+            f"[dryrun] {tag}: the walk's temp_bytes {predicted} B against "
+            f"the measured step high-water marks {measured} B: ranks {bad} "
+            f"past {DRYRUN_MEMORY_TOL:.0%}")
+    return gaps
+
+
+def phase_dryrun(card: str, shard: dict, train_ms: float,
+                 train_bytes: int) -> dict:
     """launch/dryrun.py's three records (``dryrun_proc``): each priced with
     roofline/hw.py's H100 constants, finite; [shard]'s cell's state bytes
     a rank, from its layouts, equal to ``shard``'s measured resident bytes
     on every rank, and its collectives by kind equal to ``shard``'s first
     step's; [train]'s step's roofline bound at or below ``train_ms``, its
-    measured median."""
+    measured median.  Memory: [shard]'s cell's ``temp_bytes`` within
+    DRYRUN_MEMORY_TOL of each rank's first step's own high-water mark, and
+    the walk of [train]'s plain step within it of ``train_bytes``, that
+    step's measured mark; the production record's peak a rank, modeled."""
     t0 = time.perf_counter()
     out = spawn_ranks(dryrun_proc, 1, (), "[dryrun]")[0]
     secs = time.perf_counter() - t0
@@ -5160,6 +5253,12 @@ def phase_dryrun(card: str, shard: dict, train_ms: float) -> dict:
         if not (np.all(np.isfinite(terms)) and rf["hlo_flops_per_chip"] > 0
                 and rf["hlo_bytes_per_chip"] > 0):
             raise AssertionError(f"[dryrun] {tag}: roofline {rf}")
+        mem = rec["memory"]
+        if not (mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+                and mem["temp_bytes"] >= mem["output_bytes"] > 0
+                and rec["flops"] == rf["hlo_flops_per_chip"]):
+            raise AssertionError(f"[dryrun] {tag}: memory {mem}, flops "
+                                 f"{rec['flops']}")
     want_mesh = {"data": 16, "model": 16}
     if prod["chips"] != DRYRUN_PRODUCTION["ranks"] or prod["mesh"] != \
             want_mesh:
@@ -5181,6 +5280,15 @@ def phase_dryrun(card: str, shard: dict, train_ms: float) -> dict:
         raise AssertionError(f"[dryrun] [train]'s roofline bound "
                              f"{bound_ms:.3f} ms exceeds its measured step "
                              f"{train_ms:.3f} ms")
+    shard_pred = cell["memory"]["temp_bytes"]
+    shard_meas = [o["step_bytes"][0] for o in shard["ranks"]]
+    shard_gaps = memory_gaps("[shard]'s cell", shard_pred, shard_meas)
+    plain = out["train_plain"]
+    train_gap = memory_gaps("[train]'s step", plain["temp_peak_bytes"],
+                            [train_bytes])[0]
+
+    def mib(b):
+        return f"{b / 2**20:.1f}"
 
     def terms(rec):
         rf = rec["roofline"]
@@ -5216,9 +5324,35 @@ def phase_dryrun(card: str, shard: dict, train_ms: float) -> dict:
         f"{TRAIN['seq_len']}, one rank): roofline bound {bound_ms:.3f} ms "
         f"<= measured median {train_ms:.3f} ms (fraction "
         f"{bound_ms / train_ms:.4f}); {terms(one)}")
+    log(f"[dryrun] {card}: memory, the walk's temp_bytes (512 B granule) "
+        f"against each step's measured own high-water mark above what was "
+        f"allocated before it (gate {DRYRUN_MEMORY_TOL:.0%}): [shard]'s "
+        f"cell, ranks 0-{len(shard_meas) - 1}: predicted {mib(shard_pred)} "
+        f"MiB ({shard_pred} B), measured "
+        + ", ".join(f"{mib(m)}" for m in shard_meas) + " MiB, gap "
+        + ", ".join(f"{mib(shard_pred - m)} MiB ({100 * g:+.2f}%)"
+                    for m, g in zip(shard_meas, shard_gaps))
+        + "; second step measured "
+        + ", ".join(mib(o["step_bytes"][1]) for o in shard["ranks"])
+        + f" MiB; the record's peak a rank {mib(cell['memory']['peak_bytes'])}"
+        f" MiB.  [train]'s plain step walked on meta: predicted "
+        f"{mib(plain['temp_peak_bytes'])} MiB ({plain['temp_peak_bytes']} B,"
+        f" at op {plain['peak_index']} of {plain['ops']}, "
+        f"{plain['peak_op']}), measured {mib(train_bytes)} MiB, gap "
+        f"{mib(plain['temp_peak_bytes'] - train_bytes)} MiB "
+        f"({100 * train_gap:+.2f}%); the (1, 1) record's temp "
+        f"{mib(one['memory']['temp_bytes'])} MiB")
+    peak = prod["memory"]["peak_bytes"]
+    log(f"[dryrun] modeled, not measured: {prod['arch']} {prod['shape']} on "
+        f"{prod['chips']} ranks: peak a rank {mib(peak)} MiB ({peak} B; "
+        f"arguments "
+        f"{prod['memory']['argument_bytes']} B, the step's own "
+        f"{prod['memory']['temp_bytes']} B) against the H100's "
+        f"{H100_SXM.hbm_bytes:.0f} B")
     log(f"[dryrun] {secs:.1f} s with the spawn (cells: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()) + ")")
-    return dict(records=out, seconds=secs, bound_ms=bound_ms)
+    return dict(records=out, seconds=secs, bound_ms=bound_ms,
+                shard_gaps=shard_gaps, train_gap=train_gap)
 
 
 def shard_phases(card: str, device: str = "cuda") -> dict:
@@ -5297,10 +5431,11 @@ def main(argv=None) -> int:
     phase_build()
     if args.dryrun:
         sh = phase_shard(card)
-        ms = train_step_ms()
+        ms, step_bytes = train_step_ms()
         log(f"[dryrun] {card}: [train]'s step from its initial state "
-            f"{ms:.3f} ms (median of {TRAIN_TIME_REPS})")
-        phase_dryrun(card, sh, ms)
+            f"{ms:.3f} ms (median of {TRAIN_TIME_REPS}), its own high-water "
+            f"mark {step_bytes} B")
+        phase_dryrun(card, sh, ms, step_bytes)
         log("[done] --dryrun: build, [shard] and [dryrun] passed")
         return 0
     if args.shard:
@@ -5421,7 +5556,8 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     shard = shard_phases(card)
-    phase_dryrun(card, shard["shard"], ml["train"]["step_ms"])
+    phase_dryrun(card, shard["shard"], ml["train"]["step_ms"],
+                 ml["train"]["step_bytes"])
 
     report_times(card, times, stimes, gtimes, dep, gdep)
     log(f"[times] {card}: serving plane: [ptf] ASCII chain {ptf['rounds']} "

@@ -41,6 +41,18 @@ class BiLevelStats(NamedTuple):
         """|U'| — chunks currently in the sample (per leading dim)."""
         return torch.sum(self.in_sample.to(torch.int32), dim=-1)
 
+    def merge(self, other: "BiLevelStats") -> "BiLevelStats":
+        """Combine disjoint samples of the same table (cross-worker add)."""
+        return BiLevelStats(
+            M=self.M,
+            m=self.m + other.m,
+            ysum=self.ysum + other.ysum,
+            ysq=self.ysq + other.ysq,
+            psum=self.psum + other.psum,
+            n_total=self.n_total,
+            m_total=self.m_total,
+        )
+
 
 def init_stats(chunk_sizes: torch.Tensor, query_shape: tuple = (),
                dtype=torch.float32, m_total=None) -> BiLevelStats:

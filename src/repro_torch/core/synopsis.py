@@ -69,6 +69,10 @@ class BiLevelSynopsis:
     def total_tuples(self) -> int:
         return sum(c.count for c in self.chunks.values())
 
+    @property
+    def coverage(self) -> float:
+        return len(self.chunks) / max(self.n_chunks, 1)
+
     # -------------------------------------------------------------- build --
     def update_from_engine(self, state, schedule: np.ndarray,
                            query_variances: np.ndarray) -> None:

@@ -32,17 +32,37 @@ has no such compile; here a cell runs once, abstractly:
 Each record has the reference's keys.  ``lower_s`` and ``compile_s`` are
 the build seconds and the traced step's seconds.  ``memory.argument_bytes``
 is rank 0's local bytes summed from the arguments' layouts (exact);
-``memory.output_bytes`` the local bytes of the step's outputs;
-``temp_bytes`` and ``peak_bytes`` (XLA's buffer assignment) are ``None``.
-``flops`` and ``bytes_accessed`` (XLA's cost model) are ``None``; the
-walk's terms are under ``roofline``.  Added: ``memory.state_bytes_by_rank``
-(the step's first argument, each rank's local bytes in rank order, as
-runs ``[bytes, ranks]``), ``collective_counts`` by kind and ``device``.
+``memory.output_bytes`` the local bytes of the step's outputs.  The rest
+comes from the walk (``roofline/dispatch_walk.py``), with each storage
+rounded to the CUDA caching allocator's 512-byte granule:
+
+* ``memory.temp_bytes``: the step's own high-water mark of live bytes
+  above what it holds (its arguments);
+* ``memory.peak_bytes``: ``argument_bytes + temp_bytes``;
+* ``flops``: the walk's matmul FLOPs; ``bytes_accessed``: its HBM bytes.
+
+They differ from XLA's in kind.  XLA's ``temp_size_in_bytes`` leaves out
+the outputs, and with ``donate_argnums`` (the reference's train step)
+its outputs reuse the argument buffers; the port's step donates nothing
+and builds its new state beside the old, so ``temp_bytes`` counts the
+outputs and, at the optimizer, both states are live.  XLA's ``flops``
+counts elementwise ops too; ``flops`` here counts matmuls alone.  The
+OLA verify cell's round runs at the cut size (``reduced``): its record
+gives the full layout's ``argument_bytes`` plus the cut round's
+``temp_bytes``.  ``--save-trace`` writes the walk's op list next to the
+record (``<tag>.trace.txt``: one line per op with its shapes, FLOPs, HBM
+bytes and the live bytes after it, the high-water mark's op marked),
+as the reference's ``--save-hlo`` writes its compiled HLO.  Added:
+``memory.state_bytes_by_rank`` (the step's first argument, each rank's
+local bytes in rank order, as runs ``[bytes, ranks]``),
+``collective_counts`` by kind and ``device``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
     python -m repro_torch.launch.dryrun --all --multi-pod both --out results/dryrun
     python -m repro_torch.launch.dryrun --verify-cell sharded --device cpu
+    python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k \\
+        --save-trace
 """
 
 from __future__ import annotations
@@ -58,6 +78,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.roofline.dispatch_walk import CUDA_ALLOC_GRANULE, DispatchWalk
 
 # the replicated verify layout's round runs at this many chunks (the
 # whole store is 25.8 GB a rank)
@@ -167,12 +189,23 @@ def _mesh_dict(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def _write(record: dict, out_dir: Optional[str], tag: str) -> None:
+def _memory(walk, argument_bytes: int, output_bytes: int) -> dict:
+    """The record's ``memory`` from the walk's live bytes: the step's own
+    high-water mark over ``argument_bytes``."""
+    temp = walk.temp_peak_bytes
+    return {"argument_bytes": argument_bytes, "output_bytes": output_bytes,
+            "temp_bytes": temp, "peak_bytes": argument_bytes + temp}
+
+
+def _write(record: dict, out_dir: Optional[str], tag: str,
+           walk=None) -> None:
     print(json.dumps(record))
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, tag + ".json"), "w") as f:
             json.dump(record, f, indent=1)
+        if walk is not None and walk.trace is not None:
+            walk.write_trace(os.path.join(out_dir, tag + ".trace.txt"))
 
 
 # ---------------------------------------------------------------------------
@@ -180,18 +213,18 @@ def _write(record: dict, out_dir: Optional[str], tag: str) -> None:
 # ---------------------------------------------------------------------------
 
 def run_cell(arch: str, shape, multi_pod: bool = False,
-             out_dir: Optional[str] = None, *, mesh=None,
-             reduced: bool = False) -> dict:
+             out_dir: Optional[str] = None, save_trace: bool = False, *,
+             mesh=None, reduced: bool = False) -> dict:
     """The record of ``arch`` at ``shape`` (a name of ``SHAPES`` or a
     ``ShapeSpec``) on the production mesh of the current (fake) process
     group, or on ``mesh``; ``reduced`` takes the family's CPU-sized
-    config, as ``build_cell``'s."""
+    config, as ``build_cell``'s.  ``save_trace`` writes the walk's op
+    list next to the record in ``out_dir``."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_cell, materialize
     from repro_torch.launch.steps import run_cell as run_step
     from repro_torch.roofline.analysis import analyze_step
-    from repro_torch.roofline.dispatch_walk import DispatchWalk
 
     if mesh is None:
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
@@ -201,7 +234,8 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
     args, _ = materialize(cell, "meta")
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with DispatchWalk() as w:
+    with DispatchWalk(hold=args, granule=CUDA_ALLOC_GRANULE,
+                      trace=save_trace) as w:
         out = run_step(cell, *args)
     t_step = time.perf_counter() - t0
     walk = w.summary()
@@ -214,22 +248,18 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         "chips": n_chips,
         "lower_s": round(t_build, 2),
         "compile_s": round(t_step, 2),
-        "memory": {
-            "argument_bytes": arg_bytes(cell.args, me),
-            "output_bytes": _local_bytes(out),
-            "temp_bytes": None,
-            "peak_bytes": None,
-            "state_bytes_by_rank": state_bytes_by_rank(cell.args[0], mesh),
-        },
-        "flops": None,
-        "bytes_accessed": None,
+        "memory": dict(
+            _memory(w, arg_bytes(cell.args, me), _local_bytes(out)),
+            state_bytes_by_rank=state_bytes_by_rank(cell.args[0], mesh)),
+        "flops": w.matmul_flops,
+        "bytes_accessed": w.hbm_bytes,
         "collective_counts": _collective_counts(walk),
         "device": "meta",
     }
     record.update(analyze_step(walk, arch, cell.spec, n_chips,
                                cfg=get_config(arch, reduced=reduced)))
     tag = f"{arch}__{cell.shape}__{'multipod' if multi_pod else 'pod'}"
-    _write(record, out_dir, tag)
+    _write(record, out_dir, tag, w)
     return record
 
 
@@ -245,22 +275,22 @@ def _local_store(program, shape: tuple, device, seed: int = 0):
 
 
 def run_verify_cell(layout: str, multi_pod: bool = False,
-                    out_dir: Optional[str] = None, *, device=None,
-                    mesh=None, cut: Optional[dict] = None) -> dict:
+                    out_dir: Optional[str] = None, save_trace: bool = False,
+                    *, device=None, mesh=None,
+                    cut: Optional[dict] = None) -> dict:
     """The record of the OLA verify cell's round in ``layout`` on this
     process's rank of the production mesh (or ``mesh``): memory from the
     production program's layouts, one round on the rank's real block on
     ``device`` (CUDA unless named) under the walk.  ``cut`` (``n_chunks``,
     ``m_per_chunk`` of ``production_verify_program``) shrinks the round's
     store; the replicated layout's defaults to ``REPLICATED_ROUND_CHUNKS``
-    chunks."""
+    chunks.  ``save_trace`` as :func:`run_cell`'s."""
     from repro_torch.core.engine_spmd import mesh_group
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.verify_cell import (
         build_verify_cell, local_state, production_verify_program)
     from repro_torch.roofline.analysis import analyze_step
-    from repro_torch.roofline.dispatch_walk import DispatchWalk
 
     dev = resolve_device(device)
     if mesh is None:
@@ -284,7 +314,8 @@ def run_verify_cell(layout: str, multi_pod: bool = False,
     state = local_state(program, rank, program.config.num_workers // n_dev)
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
-    with DispatchWalk() as w:
+    with DispatchWalk(hold=(state, packed, speeds),
+                      granule=CUDA_ALLOC_GRANULE, trace=save_trace) as w:
         out = step(state, packed, speeds)
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -295,13 +326,11 @@ def run_verify_cell(layout: str, multi_pod: bool = False,
         "arch": f"ola-verify-{layout}", "shape": "verify_round",
         "mesh": _mesh_dict(mesh), "chips": n_chips,
         "lower_s": round(t_build, 2), "compile_s": round(t_round, 2),
-        "memory": {
-            "argument_bytes": arg_bytes(full_args, me),
-            "output_bytes": _local_bytes(out),
-            "temp_bytes": None,
-            "peak_bytes": None,
-            "state_bytes_by_rank": state_bytes_by_rank(full_args[0], mesh),
-        },
+        "memory": dict(
+            _memory(w, arg_bytes(full_args, me), _local_bytes(out)),
+            state_bytes_by_rank=state_bytes_by_rank(full_args[0], mesh)),
+        "flops": w.matmul_flops,
+        "bytes_accessed": w.hbm_bytes,
         "collective_counts": _collective_counts(walk),
         "device": dev.type,
         "reduced": cut or None,
@@ -312,7 +341,7 @@ def run_verify_cell(layout: str, multi_pod: bool = False,
     record["roofline"]["useful_flops_ratio"] = None
     record["roofline"]["roofline_fraction"] = None
     _write(record, out_dir,
-           f"ola-verify-{layout}__{'multipod' if multi_pod else 'pod'}")
+           f"ola-verify-{layout}__{'multipod' if multi_pod else 'pod'}", w)
     return record
 
 
@@ -325,6 +354,8 @@ def main(argv=None) -> None:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", choices=("no", "yes", "both"), default="no")
     ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--save-trace", action="store_true",
+                    help="write the walk's op list next to each record")
     ap.add_argument("--device", default=None,
                     help="the verify cell's device (CUDA unless named); the "
                          "LM cells run on meta")
@@ -338,7 +369,7 @@ def main(argv=None) -> None:
         for mp in pods:
             with fake_group(512 if mp else 256):
                 run_verify_cell(args.verify_cell, mp, args.out,
-                                device=args.device)
+                                args.save_trace, device=args.device)
         return
 
     if args.all:
@@ -353,7 +384,7 @@ def main(argv=None) -> None:
         with fake_group(512 if mp else 256):
             for arch, shape in todo:
                 try:
-                    run_cell(arch, shape, mp, args.out)
+                    run_cell(arch, shape, mp, args.out, args.save_trace)
                 except Exception as e:  # noqa: BLE001 — report, continue sweep
                     traceback.print_exc()
                     failures.append((arch, shape, mp, repr(e)))

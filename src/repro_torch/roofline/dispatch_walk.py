@@ -4,7 +4,7 @@ compiled HLO text).
 
 Eager PyTorch has no HLO: a step is the sequence of aten ops it
 dispatches.  :class:`DispatchWalk` is a ``TorchDispatchMode`` that sees
-each of them on one rank and tallies three terms:
+each of them on one rank and tallies four terms:
 
 1. **Matmul FLOPs** by ``torch.utils.flop_counter``'s formulas (2·|out|·K
    for ``mm``/``bmm``/``addmm``/``baddbmm``, and its convolution and
@@ -48,9 +48,35 @@ each of them on one rank and tallies three terms:
    ``placement_types.shard_dim_alltoall`` while it is entered, and tallies
    nothing of the fallback's own ops).
 
+4. **Live bytes.**  Every storage an op's output brings into being is
+   allocated when the walk first sees it (a non-view op's result, the
+   ``empty`` factories included, which move no HBM bytes); a view, an
+   in-place op or an ``out=`` op on a known storage allocates nothing.
+   A storage is freed when it dies (``StorageWeakRef.expired()``, which
+   works on meta storages as on real ones).  The step's arguments, given
+   as ``hold`` (a module: its parameters and buffers), are *held*: live
+   for the whole step, since the caller keeps them.  Any other storage
+   an op reads that the walk has not seen is the step's own from that
+   op on: a tensor the step makes outside the dispatcher
+   (``torch.tensor(...)``) is first seen as an operand.  Each storage is
+   rounded up to an allocation ``granule``: ``CUDA_ALLOC_GRANULE``
+   (512 B, the steps in which the CUDA caching allocator counts
+   ``memory_allocated``) for the card, 1 B for hand checks.  The walk
+   keeps the high-water mark of the step's own live bytes after any op
+   (``temp_peak_bytes``), the op and its index; ``peak_bytes`` adds the
+   held bytes.  Dead storages are
+   swept only when the running total, which still counts the dead ones
+   not yet swept, exceeds the mark: only then could a new mark be set, so
+   the mark is exact without a scan of every live storage at every op.
+   What no dispatcher sees is not counted: an op's own scratch freed
+   before it returns, and what a C++ backend allocates on its own
+   threads (gloo's staging of CUDA tensors).
+
 On the meta device and a fake process group the same walk prices a step
 at any width and rank count without memory or communication
-(``launch/dryrun.py``).
+(``launch/dryrun.py``).  ``trace=True`` also keeps one line per op (its
+shapes, FLOPs, HBM bytes and the live bytes after it, swept at every op)
+for :meth:`DispatchWalk.write_trace`.
 """
 
 from __future__ import annotations
@@ -60,8 +86,13 @@ import dataclasses
 from typing import Callable
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, is_traceable_wrapper_subclass)
 from torch.utils._pytree import tree_leaves
+
+# the CUDA caching allocator counts its blocks in 512-byte steps
+CUDA_ALLOC_GRANULE = 512
 
 # (namespace, op name) -> (kind, index of the group argument); the
 # result's bytes are the output's (in place: the first argument's)
@@ -118,6 +149,19 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
+def _storage(t: torch.Tensor):
+    """The untyped storage of a plain strided tensor (a DTensor: of its
+    local shard), else None (a wrapper subclass has no storage of its
+    own)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t._local_tensor
+    if t.layout != torch.strided or is_traceable_wrapper_subclass(t):
+        return None
+    return t.untyped_storage()
+
+
 def _group_ranks(group) -> tuple:
     import torch.distributed as dist
 
@@ -139,11 +183,15 @@ def _in_fake_mode(types) -> bool:
 
 
 class DispatchWalk(TorchDispatchMode):
-    """Tally one rank's matmul FLOPs, HBM bytes and collectives over the
-    ops dispatched while it is entered (see the module docstring);
-    :meth:`summary` gives them under ``hlo_walk.walk``'s keys."""
+    """Tally one rank's matmul FLOPs, HBM bytes, collectives and live
+    bytes over the ops dispatched while it is entered (see the module
+    docstring); :meth:`summary` gives them under ``hlo_walk.walk``'s
+    keys.  ``hold``: the step's arguments (a tree of tensors), held for
+    the whole step; ``granule``: the allocation granule in bytes;
+    ``trace``: keep one line per op."""
 
-    def __init__(self) -> None:
+    def __init__(self, hold=None, granule: int = 1,
+                 trace: bool = False) -> None:
         super().__init__()
         from torch.utils.flop_counter import FlopCounterMode
 
@@ -155,6 +203,23 @@ class DispatchWalk(TorchDispatchMode):
         self.collectives: list[Collective] = []
         self._quiet = 0
         self._patched = None
+        # live bytes: storage key -> (weak reference, rounded bytes)
+        self.granule = int(granule)
+        self._held: dict = {}
+        self._own: dict = {}
+        self.held_bytes = 0
+        self.live_bytes = 0          # the step's own, dead ones not swept
+        self.temp_peak_bytes = 0
+        self.peak_index = None
+        self.peak_op = None
+        self.ops = 0
+        self.trace = [] if trace else None
+        for t in _tensors(hold):
+            self._see(_storage(t), held=True)
+        for m in tree_leaves(hold):
+            if isinstance(m, torch.nn.Module):
+                for t in (*m.parameters(), *m.buffers()):
+                    self._see(_storage(t), held=True)
 
     # -- shard-dim all-to-all: counted as asked for -----------------------
     def _wrap_alltoall(self, real: Callable) -> Callable:
@@ -201,10 +266,63 @@ class DispatchWalk(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented      # DTensor runs the rank's local ops
         out = func(*args, **kwargs)
-        if self._quiet or _in_fake_mode(types):
+        if _in_fake_mode(types):
             return out
-        self._tally(func, args, kwargs, out)
+        before = (self.matmul_flops, self.hbm_bytes)
+        if not self._quiet:
+            self._tally(func, args, kwargs, out)
+        self._allocate(func, args, kwargs, out, before)
         return out
+
+    # -- live bytes -------------------------------------------------------
+    def _see(self, s, held: bool) -> None:
+        """Count storage ``s`` (None: nothing) held or as the step's own,
+        if the walk has not seen it; a known storage of the step's that
+        an ``out=`` op resized is recounted."""
+        if s is None:
+            return
+        key = s._cdata
+        g = self.granule
+        n = -(-s.nbytes() // g) * g
+        own = self._own.get(key)
+        if own is not None:
+            if own[1] != n:
+                self.live_bytes += n - own[1]
+                self._own[key] = (own[0], n)
+            return
+        if key in self._held:
+            return
+        if held:
+            self._held[key] = (StorageWeakRef(s), n)
+            self.held_bytes += n
+        else:
+            self._own[key] = (StorageWeakRef(s), n)
+            self.live_bytes += n
+
+    def _sweep(self) -> None:
+        expired = torch.UntypedStorage._expired
+        dead = [k for k, (w, _) in self._own.items() if expired(w.cdata)]
+        for k in dead:
+            self.live_bytes -= self._own.pop(k)[1]
+
+    def _allocate(self, func, args, kwargs, out, before) -> None:
+        for t in _tensors((args, kwargs, out)):
+            self._see(_storage(t), held=False)
+        if self.live_bytes > self.temp_peak_bytes or self.trace is not None:
+            self._sweep()
+            if self.live_bytes > self.temp_peak_bytes:
+                self.temp_peak_bytes = self.live_bytes
+                self.peak_index, self.peak_op = self.ops, str(func)
+        if self.trace is not None:
+            def shapes(tree):
+                return [(tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                        for t in _tensors(tree)]
+
+            self.trace.append((str(func), shapes((args, kwargs)),
+                               shapes(out),
+                               self.matmul_flops - before[0],
+                               self.hbm_bytes - before[1], self.live_bytes))
+        self.ops += 1
 
     def _tally(self, func, args, kwargs, out) -> None:
         packet = func._overloadpacket
@@ -237,10 +355,40 @@ class DispatchWalk(TorchDispatchMode):
     def matmul_flops(self) -> int:
         return sum(self.flops_by_dtype.values())
 
+    @property
+    def peak_bytes(self) -> int:
+        """The step's high-water mark with what it holds."""
+        return self.held_bytes + self.temp_peak_bytes
+
+    def memory(self) -> dict:
+        return {"granule": self.granule, "held_bytes": self.held_bytes,
+                "temp_peak_bytes": self.temp_peak_bytes,
+                "peak_bytes": self.peak_bytes, "peak_op": self.peak_op,
+                "peak_index": self.peak_index, "ops": self.ops}
+
+    def write_trace(self, path: str) -> None:
+        """One line per op (``trace=True``): its index, the op, its
+        operands' and results' local shapes and dtypes, its matmul FLOPs,
+        HBM bytes and the step's own live bytes after it; the op at the
+        high-water mark is marked ``<- peak``."""
+        with open(path, "w") as f:
+            f.write(f"# granule {self.granule} B; held {self.held_bytes} "
+                    f"B; the step's own peak {self.temp_peak_bytes} B "
+                    f"at op {self.peak_index}; peak with what it holds "
+                    f"{self.peak_bytes} B\n"
+                    "# index\top\toperands\tresults\tflops\thbm_bytes"
+                    "\tlive_bytes\n")
+            for i, (op, ins, outs, flops, hbm, live) in enumerate(
+                    self.trace):
+                mark = "\t<- peak" if i == self.peak_index else ""
+                f.write(f"{i}\t{op}\t{ins}\t{outs}\t{flops}\t{hbm}\t"
+                        f"{live}{mark}\n")
+
     def summary(self) -> dict:
         """``hlo_walk.walk``'s keys (``unresolved_trip_counts`` and
         ``num_computations`` have no eager meaning: ``None``), plus the
-        FLOPs by dtype and by op and the collectives."""
+        FLOPs by dtype and by op, the collectives and the live bytes
+        (:meth:`memory`)."""
         from repro_torch.roofline.analysis import collective_bytes
 
         coll = collective_bytes(self.collectives)
@@ -255,11 +403,13 @@ class DispatchWalk(TorchDispatchMode):
             "flops_by_dtype": dict(self.flops_by_dtype),
             "flops_by_op": dict(self.flops_by_op),
             "collectives": list(self.collectives),
+            "memory": self.memory(),
         }
 
 
 def walk(fn: Callable, *args, **kwargs) -> tuple:
-    """``(fn(*args, **kwargs), summary)`` of one rank's work in the call."""
-    with DispatchWalk() as w:
+    """``(fn(*args, **kwargs), summary)`` of one rank's work in the call,
+    the arguments held."""
+    with DispatchWalk(hold=(args, kwargs)) as w:
         out = fn(*args, **kwargs)
     return out, w.summary()

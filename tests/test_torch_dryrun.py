@@ -20,6 +20,12 @@ groups in this process (meta DTensors: no memory, no communication).
   4,096 tuples; its argument bytes from the production layouts: the
   replicated state, the rank's 1,024 of 4,096 chunks, its worker's speed).
 * ``scripts/roofline_table.py`` reads a port record unchanged.
+* The records' memory and cost fields are integers from the walk:
+  ``peak_bytes == argument_bytes + temp_bytes``, ``flops`` and
+  ``bytes_accessed`` the roofline's terms.  The (1, 1) cell's walk on
+  real CPU tensors equals its walk on meta to the byte (held, own and
+  peak bytes, the peak's op), and its saved trace holds the arguments'
+  bytes, each rounded to 512, and marks the record's peak.
 """
 
 import ast
@@ -47,6 +53,26 @@ def _local_bytes(tree):
                for t in tree_leaves(tree) if isinstance(t, DTensor))
 
 
+def _cell_walk(mesh, device):
+    """The walk's memory of the reduced (1, 1) train cell's step on
+    ``device``'s arguments, as ``run_cell`` walks it; and the arguments'
+    local bytes, each rounded to the walk's granule."""
+    from repro_torch.launch.steps import build_cell, materialize, run_cell
+    from repro_torch.roofline.dispatch_walk import (
+        CUDA_ALLOC_GRANULE, DispatchWalk)
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+
+    g = CUDA_ALLOC_GRANULE
+    cell = build_cell("smollm-135m", SHAPE, mesh, reduced=True)
+    args, _ = materialize(cell, device)
+    with DispatchWalk(hold=args, granule=g) as w:
+        run_cell(cell, *args)
+    held = sum(-(-t.to_local().untyped_storage().nbytes() // g) * g
+               for t in tree_leaves(args) if isinstance(t, DTensor))
+    return w.memory(), held
+
+
 def _single_device_walk():
     from repro_torch.configs import get_config
     from repro_torch.models.convert import tree_from_module
@@ -68,7 +94,7 @@ def _single_device_walk():
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """Every drive in sequence (a process has one default group)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -79,8 +105,13 @@ def runs():
     out = {}
     out["cfg"], out["single"], out["grad"] = _single_device_walk()
     with dryrun.fake_group(1):
-        out["one"] = dryrun.run_cell("smollm-135m", SHAPE, reduced=True,
-                                     mesh=make_debug_mesh(1, 1, "cpu"))
+        mesh = make_debug_mesh(1, 1, "cpu")
+        out["trace_dir"] = tmp_path_factory.mktemp("dryrun")
+        out["one"] = dryrun.run_cell("smollm-135m", SHAPE, False,
+                                     str(out["trace_dir"]), True,
+                                     reduced=True, mesh=mesh)
+        out["walks"] = {dev: _cell_walk(mesh, dev)
+                        for dev in ("meta", "cpu")}
     with dryrun.fake_group(8):
         mesh = make_debug_mesh(4, 2, "cpu")
         with CommDebugMode() as comm:
@@ -230,3 +261,52 @@ def test_roofline_table_reads_a_port_record(runs, tmp_path):
             if r.startswith("| smollm-135m | train_4k |")]
     assert len(rows) == 1
     assert f"| {runs['rank0']['roofline']['dominant'][:-2]} |" in rows[0]
+
+
+@pytest.mark.parametrize("name", ["one", "rank0", "verify"])
+def test_memory_and_cost_fields_from_the_walk(runs, name):
+    rec = runs[name]
+    mem, rf = rec["memory"], rec["roofline"]
+    for v in (mem["temp_bytes"], mem["peak_bytes"], rec["flops"],
+              rec["bytes_accessed"]):
+        assert isinstance(v, int)
+    assert min(mem["temp_bytes"], rec["bytes_accessed"]) > 0
+    # the OLA round runs no matmul
+    assert (rec["flops"] > 0) == (name != "verify")
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    # a step's own bytes hold at least its outputs
+    assert mem["temp_bytes"] >= mem["output_bytes"]
+    assert rec["flops"] == rf["hlo_flops_per_chip"]
+    assert rec["bytes_accessed"] == rf["hlo_bytes_per_chip"]
+    # the walk's granule is the CUDA caching allocator's
+    assert mem["temp_bytes"] % 512 == 0
+
+
+def test_meta_walk_equals_the_real_tensor_walk(runs):
+    (meta, held), (real, _) = runs["walks"]["meta"], runs["walks"]["cpu"]
+    # ``torch.tensor`` dispatches a ``lift_fresh`` on the CPU, none on
+    # meta: the op counts may differ by those, the bytes may not
+    assert 0 <= real["ops"] - meta["ops"] <= 1
+    assert ({k: v for k, v in real.items() if k != "ops"}
+            == {k: v for k, v in meta.items() if k != "ops"})
+    assert real["peak_bytes"] == meta["peak_bytes"] == held + meta[
+        "temp_peak_bytes"]
+    assert meta["temp_peak_bytes"] == runs["one"]["memory"]["temp_bytes"]
+
+
+def test_saved_trace_holds_the_arguments_and_marks_the_peak(runs):
+    rec = runs["one"]
+    path = runs["trace_dir"] / "smollm-135m__train_4k__pod.trace.txt"
+    assert (runs["trace_dir"] / "smollm-135m__train_4k__pod.json").exists()
+    lines = path.read_text().splitlines()
+    mem = rec["memory"]
+    held = runs["walks"]["meta"][1]
+    assert lines[0] == (
+        f"# granule 512 B; held {held} B; the step's own peak "
+        f"{mem['temp_bytes']} B at op "
+        f"{lines[0].split(' at op ')[1].split(';')[0]}; peak with what it "
+        f"holds {held + mem['temp_bytes']} B")
+    marked = [ln.split("\t") for ln in lines[2:] if ln.endswith("<- peak")]
+    assert len(marked) == 1
+    assert int(marked[0][6]) == mem["temp_bytes"]
+    assert sum(int(ln.split("\t")[4]) for ln in lines[2:]) == rec["flops"]

@@ -127,3 +127,21 @@ def test_init_stats_shapes():
     st = te.init_stats(sizes, query_shape=(4,))
     assert st.ysum.shape == (4, 3) and st.m.shape == (3,)
     assert st.n_total == 3 and st.m_total == 60
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(per_slot_m=True)])
+def test_merge_matches(kw):
+    """Two disjoint samples of one table merged: integer fields equal,
+    float fields within float32's tolerance."""
+    ja, ta = _pair(21, **kw)
+    jb, tb = _pair(22, **kw)
+    jb = jb._replace(M=ja.M)
+    tb = tb._replace(M=ta.M)
+    j, t = ja.merge(jb), ta.merge(tb)
+    assert (t.n_total, t.m_total) == (j.n_total, j.m_total)
+    for name in ("M", "m"):
+        got, want = getattr(t, name).numpy(), np.asarray(getattr(j, name))
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    for name in ("ysum", "ysq", "psum"):
+        _close(getattr(t, name), getattr(j, name))
+    _close(te.tau_hat(t), je.tau_hat(j))

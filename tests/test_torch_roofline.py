@@ -25,6 +25,11 @@ The reference's dry run cannot lower its own cells on jax 0.9.0 (ROADMAP,
     need no gradient for their step-0 input (the zero initial state);
     torch's autograd skips it, while XLA's rolled time scan runs the same
     body, that dot included, at every step.
+* The argument and output bytes of the reduced smollm-135m train step's
+  loss and gradient, walked on meta, equal the reference's
+  ``memory_analysis()`` of the compile the FLOP test already made: the
+  arguments exactly, the outputs less XLA's result tuple's index table
+  (8 bytes a result); the port's peak holds at least both.
 * ``collective_bytes`` equals the reference's on the HLO of
   ``tests/test_sharding_roofline.py``'s parsing test plus one
   reduce-scatter and one all-to-all line.
@@ -34,10 +39,12 @@ The reference's dry run cannot lower its own cells on jax 0.9.0 (ROADMAP,
 
 import ast
 import dataclasses
+import functools
 import os
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
@@ -58,10 +65,20 @@ FAST_CODEGEN = {"xla_backend_optimization_level": 0,
 def _ref_step_text(arch, kind, b, s, overrides):
     """The reference's compiled HLO: for a train step, the loss and its
     gradient (the step's matmuls: AdamW's update has none)."""
+    compiled, cfg = _ref_compiled(arch, kind, b, s,
+                                  tuple(sorted(overrides.items())))
+    return compiled.as_text(), cfg
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_compiled(arch, kind, b, s, overrides):
+    """The reference's compiled step (each compiled once a process) and
+    its config."""
     from repro.configs.registry import get_config
     from repro.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch, reduced=True), **overrides)
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              **dict(overrides))
     model = build_model(cfg)
     params = jax.eval_shape(lambda k: model.init(k)[0],
                             jax.random.PRNGKey(0))
@@ -78,7 +95,7 @@ def _ref_step_text(arch, kind, b, s, overrides):
         lowered = jax.jit(
             lambda p, c, t, q: model.decode_step(p, c, t, q)).lower(
             params, cache, SDS((b, 1), jnp.int32), SDS((b,), jnp.int32))
-    return lowered.compile(compiler_options=FAST_CODEGEN).as_text(), cfg
+    return lowered.compile(compiler_options=FAST_CODEGEN), cfg
 
 
 def _port_step_walk(arch, kind, b, s, overrides):
@@ -157,6 +174,53 @@ def test_matmul_flops_equal_reference_walker(arch, kind, overrides, extra):
     want = PINNED.get((arch, kind, tuple(overrides)))
     if want is not None:
         assert got["matmul_flops"] == want
+
+
+def _leaf_bytes(tree, path=""):
+    """``{path: bytes}`` of a tree of dicts of arrays or tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_bytes(v, f"{path}/{k}"))
+        return out
+    return {path: int(np.prod(tree.shape)) * np.dtype(
+        str(tree.dtype).removeprefix("torch.")).itemsize}
+
+
+def test_memory_equals_reference_arguments_and_outputs():
+    """The reduced smollm-135m train step's loss and gradient at (2, 64)
+    (the FLOP test's first compile): arguments = the parameters, tokens
+    and labels; outputs = the loss and one gradient a parameter.  XLA's
+    ``output_size_in_bytes`` also counts its result tuple's index table,
+    8 bytes a result.  Its ``peak_memory_in_bytes`` is not held: XLA
+    fuses ops and reuses buffers by its own schedule."""
+    from repro.models import build_model as ref_build_model
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import tree_from_module
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline.dispatch_walk import DispatchWalk
+    from repro_torch.train.train_step import value_and_grad
+
+    b, s = 2, 64
+    compiled, ref_cfg = _ref_compiled("smollm-135m", "train", b, s, ())
+    mem = compiled.memory_analysis()
+    ref_params = jax.eval_shape(
+        lambda k: ref_build_model(ref_cfg).init(k)[0],
+        jax.random.PRNGKey(0))
+
+    model = build_model(get_config("smollm-135m", reduced=True),
+                        device="meta")
+    params = tree_from_module(model)
+    assert _leaf_bytes(params) == _leaf_bytes(ref_params)
+    batch = {k: torch.empty((b, s), dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with DispatchWalk(hold=(params, batch)) as w:
+        loss, grads = value_and_grad(model.loss_fn, params, batch)
+    assert w.held_bytes == mem.argument_size_in_bytes
+    results = [loss] + torch.utils._pytree.tree_leaves(grads)
+    out_bytes = sum(t.numel() * t.element_size() for t in results)
+    assert out_bytes + 8 * len(results) == mem.output_size_in_bytes
+    assert w.peak_bytes >= w.held_bytes + out_bytes
 
 
 @pytest.mark.parametrize("arch,shape", [(a, s) for a, s, _ in
