@@ -3937,7 +3937,10 @@ def train_parity(device: str) -> dict:
     batches = token_batches(cfg, TRAIN_PARITY_STEPS, TRAIN_PARITY_SHAPE)
     got = {}
     for dev in (device, "cpu"):
-        state = init_train_state(tree_map(lambda t: t.to(dev), tree))
+        # the step updates its state in place (donated): each device's
+        # run starts from its own copy of the tree
+        state = init_train_state(tree_map(lambda t: t.to(dev, copy=True),
+                                          tree))
         ms = []
         for b in batches:
             state, m = step(state, {k: v.to(dev) for k, v in b.items()})
@@ -4099,7 +4102,11 @@ def phase_train(card: str, device: str = "cuda", cfg=None) -> dict:
         f"{'not measured' if resident is None else f'{resident:.1f} MiB'}"
         f", so a step adds "
         f"{'not measured' if peak is None else f'{peak - resident:.1f} MiB'}"
-        f"); "
+        f"; the step's own high-water mark above what was allocated before "
+        f"it "
+        f"{'not measured' if step_bytes is None else f'{step_bytes / 2**20:.1f} MiB'}"
+        f" beside the state's {state_mib:.1f} MiB: the state is donated, "
+        f"updated in place); "
         f"timed in {secs[0]:.1f} s, counted in {secs[1]:.1f} s, profiled in "
         f"{secs[2]:.1f} s")
     return dict(parity=parity, launches=launches, steps=result["steps"],
@@ -4445,7 +4452,8 @@ def fam_train_parity(device) -> dict:
         batch = token_batches(cfg, 1, TRAIN_PARITY_SHAPE)[0]
         got = {}
         for dev in (device, "cpu"):
-            state = init_train_state(tree_map(lambda t: t.to(dev), tree))
+            state = init_train_state(tree_map(
+                lambda t: t.to(dev, copy=True), tree))
             _, m = step(state, {k: v.to(dev) for k, v in batch.items()})
             got[dev] = (float(m["loss"]), float(m["grad_norm"]))
         rel = max(abs(a - b) / abs(b) for a, b in zip(got[device], got["cpu"]))
@@ -5123,6 +5131,10 @@ def phase_shard(card: str, device: str = "cuda",
 # (data 2, model 2) mesh, [train]'s step on one rank; and [train]'s plain
 # step (train_step_ms's program, no mesh) walked on meta for its memory
 DRYRUN_PRODUCTION = dict(arch=SHARD_ARCH, shape="train_4k", ranks=256)
+# the production rank's matmul FLOPs a step at most: its share of the
+# model's (heads split 16 ways, the K/V projections replicated, remat's
+# second forward) is ~1.7e13
+DRYRUN_PRODUCTION_FLOPS = 2.5e13
 COMM_KINDS = {"all_gather_into_tensor": "all-gather",
               "_allgather_base_": "all-gather",
               "all_reduce": "all-reduce",
@@ -5254,8 +5266,13 @@ def phase_dryrun(card: str, shard: dict, train_ms: float,
                 and rf["hlo_bytes_per_chip"] > 0):
             raise AssertionError(f"[dryrun] {tag}: roofline {rf}")
         mem = rec["memory"]
+        # the train state is donated: the step's own bytes hold at least
+        # its outputs that alias no argument, and the outputs alias all
+        # of the state
+        fresh = mem["output_bytes"] - mem["alias_bytes"]
         if not (mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
-                and mem["temp_bytes"] >= mem["output_bytes"] > 0
+                and mem["temp_bytes"] >= fresh > 0
+                and mem["alias_bytes"] == mem["state_bytes_by_rank"][0][0]
                 and rec["flops"] == rf["hlo_flops_per_chip"]):
             raise AssertionError(f"[dryrun] {tag}: memory {mem}, flops "
                                  f"{rec['flops']}")
@@ -5263,6 +5280,16 @@ def phase_dryrun(card: str, shard: dict, train_ms: float,
     if prod["chips"] != DRYRUN_PRODUCTION["ranks"] or prod["mesh"] != \
             want_mesh:
         raise AssertionError(f"[dryrun] production cell on {prod['mesh']}")
+    # the production rank fits an H100 and does its share of the work:
+    # the donated state, the vocab-parallel loss and the query heads split
+    # over the model axis
+    if not (prod["memory"]["peak_bytes"] < H100_SXM.hbm_bytes
+            and prod["flops"] < DRYRUN_PRODUCTION_FLOPS):
+        raise AssertionError(
+            f"[dryrun] production cell: peak {prod['memory']['peak_bytes']}"
+            f" B a rank (the H100's {H100_SXM.hbm_bytes:.0f}), matmul FLOPs "
+            f"{prod['flops']:.6g} a rank (gate "
+            f"{DRYRUN_PRODUCTION_FLOPS:.6g})")
     predicted = [n for n, k in cell["memory"]["state_bytes_by_rank"]
                  for _ in range(k)]
     measured = [o["resident"] for o in shard["ranks"]]
@@ -5347,8 +5374,12 @@ def phase_dryrun(card: str, shard: dict, train_ms: float,
         f"{prod['chips']} ranks: peak a rank {mib(peak)} MiB ({peak} B; "
         f"arguments "
         f"{prod['memory']['argument_bytes']} B, the step's own "
-        f"{prod['memory']['temp_bytes']} B) against the H100's "
-        f"{H100_SXM.hbm_bytes:.0f} B")
+        f"{prod['memory']['temp_bytes']} B, outputs "
+        f"{prod['memory']['output_bytes']} B of which "
+        f"{prod['memory']['alias_bytes']} B alias the donated state) below "
+        f"the H100's {H100_SXM.hbm_bytes:.0f} B; matmul FLOPs a rank "
+        f"{prod['flops']:.6g} below {DRYRUN_PRODUCTION_FLOPS:.6g}, useful "
+        f"ratio {rf['useful_flops_ratio']:.6g}")
     log(f"[dryrun] {secs:.1f} s with the spawn (cells: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()) + ")")
     return dict(records=out, seconds=secs, bound_ms=bound_ms,

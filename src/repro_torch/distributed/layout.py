@@ -128,41 +128,175 @@ def embedding(table: DTensor, tokens: torch.Tensor):
                        table.redistribute(table.device_mesh, keep))
 
 
-def attention_heads(x, kv_heads: int, *ts):
-    """DTensors ``ts`` (B, S|T, H, D) of the attention on input ``x``
-    (B, S, d), in its per-rank layout: ``x``'s batch sharding, and the
-    heads on the tensor-parallel mesh dim when its size divides the KV
-    head count (each rank's query heads then read only its own KV heads),
-    else whole.  Plain tensors are returned as they are."""
+def attention_heads(x, kv_heads: int, q, k, v, split_queries: bool = True):
+    """DTensors ``q``, ``k``, ``v`` (B, S|T, H, D) of the attention on
+    input ``x`` (B, S, d), in its per-rank layout: ``x``'s batch sharding,
+    and on the tensor-parallel mesh dim the reference's rules (``q_heads``
+    over the model axis, ``kv_heads`` replicated): the KV heads split when
+    the axis divides their count (each rank's query heads then read only
+    its own KV heads), else whole on every rank, and the query heads split
+    either way (their count is padded to a multiple of the axis) unless
+    ``split_queries`` is off, when they follow the KV heads (the decode
+    path, whose cache keeps that layout).  Plain tensors are returned as
+    they are."""
     if not isinstance(x, DTensor):
-        return ts
+        return q, k, v
     mesh = x.device_mesh
     tp = tensor_dim(mesh)
-    layout = tuple(
-        Shard(0) if _is_batch(p)
-        else Shard(2) if md == tp and kv_heads % mesh.size(md) == 0
-        else Replicate()
-        for md, p in enumerate(x.placements))
-    return tuple(t if tuple(t.placements) == layout
-                 else t.redistribute(mesh, layout) for t in ts)
+    n = mesh.size(tp) if tp >= 0 else 1
+    kv_split = kv_heads % n == 0
+    q_split = kv_split or (split_queries and q.shape[2] % n == 0)
+
+    def layout(split: bool) -> tuple:
+        return tuple(Shard(0) if _is_batch(p)
+                     else Shard(2) if md == tp and split else Replicate()
+                     for md, p in enumerate(x.placements))
+
+    return tuple(t if tuple(t.placements) == lay else t.redistribute(mesh, lay)
+                 for t, lay in ((q, layout(q_split)), (k, layout(kv_split)),
+                                (v, layout(kv_split))))
 
 
 def attend(fn, q, k, v, mask):
     """``fn(q, k, v, mask)``; on DTensors (laid out by
     :func:`attention_heads`) on each rank's own batch rows and heads, since
-    no step of attention reads another rank's rows or heads."""
+    no step of attention reads another rank's rows or heads.
+
+    Where the query heads are split on the tensor-parallel dim and the KV
+    heads whole, each rank's query head ``h`` reads KV head ``h // G`` (G
+    = query heads / KV heads): the rank selects those KV heads
+    (``index_select``) and runs ``fn`` with one query head a KV head, so a
+    rank whose heads straddle two groups needs no reshape of a group.  The
+    K/V gradients are then partial sums over the tensor-parallel ranks."""
     if not isinstance(q, DTensor):
         return fn(q, k, v, mask)
     from torch.distributed.tensor.experimental import local_map
 
-    mesh, layout = q.device_mesh, tuple(q.placements)
+    mesh, q_pl = q.device_mesh, tuple(q.placements)
     if not isinstance(mask, DTensor):
         mask = _replicated(mask, mesh)
-    batch = tuple(p if _is_batch(p) else Replicate() for p in layout)
-    return local_map(fn, out_placements=(layout,),
-                     in_placements=(layout, layout, layout, batch),
+    batch = tuple(p if _is_batch(p) else Replicate() for p in q_pl)
+    tp = tensor_dim(mesh)
+    if tp < 0 or q_pl[tp] != Shard(2) or k.placements[tp] == Shard(2):
+        return local_map(fn, out_placements=(q_pl,),
+                         in_placements=(q_pl, q_pl, q_pl, batch),
+                         device_mesh=mesh, redistribute_inputs=True)(
+            q, k, v, mask)
+    kv_pl = tuple(Replicate() if md == tp else p for md, p in enumerate(q_pl))
+    kv_grad = tuple(Partial() if md == tp else p for md, p in enumerate(q_pl))
+    local = q.shape[2] // mesh.size(tp)
+    first = mesh.get_local_rank(tp) * local
+    groups = q.shape[2] // k.shape[2]
+    heads = torch.arange(first, first + local, device=q.device) // groups
+
+    def own_heads(ql, kl, vl, ml):
+        return fn(ql, kl.index_select(2, heads), vl.index_select(2, heads),
+                  ml)
+
+    return local_map(own_heads, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl, batch),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, batch),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k, v, mask)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The cross entropy's sums over a rank's own block of logits (B, S,
+    V_loc), vocab columns ``lo`` on: the row max, the sum of ``exp`` and
+    the label's logit all-reduced over ``vocab`` (a process group, None
+    when the block holds the whole vocabulary), the loss and the valid
+    count over ``batch`` (the groups of the mesh dims that split the
+    rows).  Padded columns (``vocab_real`` on) are masked to -1e9 in the
+    logits' dtype, as the plain loss masks them.  The backward is
+    ``softmax - one_hot`` on the block, times the upstream gradient over
+    the valid count, zero on padded columns: no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo, vocab_real, ignore_id, vocab, batch):
+        ops = torch.ops._c10d_functional
+
+        def reduce(t, op, groups):
+            for g in groups:
+                t = ops.wait_tensor(ops.all_reduce(t, op, g.group_name))
+            return t
+
+        width = logits.shape[-1]
+        pad = lo + width > vocab_real
+        x = logits
+        if pad:
+            cols = torch.arange(lo, lo + width, device=logits.device)
+            x = torch.where(cols >= vocab_real,
+                            torch.tensor(-1e9, dtype=logits.dtype,
+                                         device=logits.device), x)
+        x = x.to(torch.float32)
+        valid = labels != ignore_id
+        col = torch.where(valid, labels, torch.zeros_like(labels)).long() - lo
+        mine = (col >= 0) & (col < width)
+        col = col.clamp(0, width - 1)
+        vocab = () if vocab is None else (vocab,)
+        top = reduce(x.amax(-1), "max", vocab)
+        total = reduce(torch.exp(x - top[..., None]).sum(-1), "sum", vocab)
+        at_label = torch.take_along_dim(x, col[..., None], dim=-1)[..., 0]
+        at_label = reduce(torch.where(mine, at_label, 0.0), "sum", vocab)
+        ll = at_label - top - torch.log(total)
+        num = reduce(-torch.sum(ll * valid), "sum", batch)
+        count = reduce(torch.sum(valid), "sum", batch)
+        ctx.save_for_backward(x, top, total, col, mine, valid, count)
+        ctx.dtype, ctx.lo, ctx.vocab_real, ctx.pad = (
+            logits.dtype, lo, vocab_real, pad)
+        return num / torch.clamp(count, min=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, top, total, col, mine, valid, count = ctx.saved_tensors
+        out = torch.exp(x - top[..., None]).div_(total[..., None])
+        out.scatter_add_(-1, col[..., None],
+                         -mine[..., None].to(torch.float32))
+        out.mul_((grad / torch.clamp(count, min=1) * valid)[..., None])
+        if ctx.pad:
+            cols = torch.arange(ctx.lo, ctx.lo + x.shape[-1], device=x.device)
+            out.masked_fill_(cols >= ctx.vocab_real, 0.0)
+        return out.to(ctx.dtype), None, None, None, None, None, None
+
+
+def cross_entropy(logits: DTensor, labels, vocab_real: int,
+                  ignore_id: int = -100):
+    """The mean next-token cross entropy of DTensor ``logits`` (B, S,
+    V_pad) over the valid positions of ``labels`` (B, S), padded vocab
+    columns masked, vocab-parallel: each rank computes on its own block
+    (batch rows where ``logits`` shards dim 0, vocab columns where the
+    tensor-parallel mesh dim shards the last dim; any other placement is
+    gathered first) and only per-row sums cross ranks, so no rank holds
+    the global batch's or the whole vocabulary's logits, nor their
+    gradient.  The loss is replicated."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    tp = tensor_dim(mesh)
+    last = logits.dim() - 1
+    lay, rows = [], []
+    vocab, lo = None, 0
+    for md, p in enumerate(logits.placements):
+        if _is_batch(p):
+            lay.append(Shard(0))
+            rows.append(mesh.get_group(md))
+        elif md == tp and isinstance(p, Shard) and p.dim in (-1, last):
+            lay.append(Shard(last))
+            # DTensor's split: blocks of ceil(V / n) columns, in rank order
+            block = -(-logits.shape[-1] // mesh.size(md))
+            vocab, lo = mesh.get_group(md), mesh.get_local_rank(md) * block
+        else:
+            lay.append(Replicate())
+    lay = tuple(lay)
+    lab = tuple(p if _is_batch(p) else Replicate() for p in lay)
+    if not isinstance(labels, DTensor):
+        labels = _replicated(labels, mesh)
+    return local_map(
+        lambda x, y: _VocabParallelCE.apply(x, y, lo, vocab_real, ignore_id,
+                                            vocab, tuple(rows)),
+        out_placements=(tuple(Replicate() for _ in lay),),
+        in_placements=(lay, lab), in_grad_placements=(lay, lab),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)
 
 
 def write_slots(buf, bi: torch.Tensor, slot: torch.Tensor, val) -> None:
@@ -251,6 +385,26 @@ def group_local(fn, like, n_out: int, *args):
     return local_map(fn, out_placements=(layout,) * n_out, in_placements=in_p,
                      device_mesh=like.device_mesh,
                      redistribute_inputs=True)(*args)
+
+
+def batch_rows(fn, like, *args):
+    """``fn(*args)`` of tensors (B, ...) (or None) that read no other batch
+    row; when ``like`` is a DTensor, on each rank's own rows of ``like``'s
+    batch layout (a plain argument is taken as the whole batch, equal on
+    every rank), the result (B, ...) in that layout: no rank builds the
+    global batch's result (attention's mask)."""
+    if not isinstance(like, DTensor):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = like.device_mesh
+    rows = tuple(p if _is_batch(p) else Replicate() for p in like.placements)
+    args = [a if a is None or isinstance(a, DTensor) else _replicated(a, mesh)
+            for a in args]
+    return local_map(fn, out_placements=(rows,),
+                     in_placements=tuple(None if a is None else rows
+                                         for a in args),
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def batch_local(fwd):

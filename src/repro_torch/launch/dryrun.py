@@ -32,7 +32,9 @@ has no such compile; here a cell runs once, abstractly:
 Each record has the reference's keys.  ``lower_s`` and ``compile_s`` are
 the build seconds and the traced step's seconds.  ``memory.argument_bytes``
 is rank 0's local bytes summed from the arguments' layouts (exact);
-``memory.output_bytes`` the local bytes of the step's outputs.  The rest
+``memory.output_bytes`` the local bytes of the step's outputs and
+``memory.alias_bytes`` those of them that live in an argument's storage
+(the donated train state).  The rest
 comes from the walk (``roofline/dispatch_walk.py``), with each storage
 rounded to the CUDA caching allocator's 512-byte granule:
 
@@ -43,9 +45,13 @@ rounded to the CUDA caching allocator's 512-byte granule:
 
 They differ from XLA's in kind.  XLA's ``temp_size_in_bytes`` leaves out
 the outputs, and with ``donate_argnums`` (the reference's train step)
-its outputs reuse the argument buffers; the port's step donates nothing
-and builds its new state beside the old, so ``temp_bytes`` counts the
-outputs and, at the optimizer, both states are live.  XLA's ``flops``
+its outputs reuse the argument buffers.  The port's train step is
+donated too (``train/train_step.py``: the new state is written into the
+old one's storages), so its outputs alias its arguments and
+``memory.alias_bytes`` counts them, as XLA's ``alias_size_in_bytes``
+does; ``temp_bytes`` holds at least the outputs that alias no argument,
+and at the optimizer only the gradients and one leaf's temporaries are
+live beside the state.  XLA's ``flops``
 counts elementwise ops too; ``flops`` here counts matmuls alone.  The
 OLA verify cell's round runs at the cut size (``reduced``): its record
 gives the full layout's ``argument_bytes`` plus the cut round's
@@ -168,17 +174,25 @@ def state_bytes_by_rank(tree, mesh) -> list:
     return runs
 
 
-def _local_bytes(tree) -> int:
+def _locals(tree) -> list:
+    """The local tensors of ``tree``'s tensor leaves (a DTensor's shard)."""
     from torch.distributed.tensor import DTensor
     from torch.utils._pytree import tree_leaves
 
-    total = 0
-    for t in tree_leaves(tree):
-        if isinstance(t, DTensor):
-            t = t.to_local()
-        if isinstance(t, torch.Tensor):
-            total += t.numel() * t.element_size()
-    return total
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _local_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _locals(tree))
+
+
+def _alias_bytes(out, args) -> int:
+    """The local bytes of ``out``'s leaves that live in a storage of
+    ``args`` (XLA's ``alias_size_in_bytes``: the donated train state)."""
+    held = {t.untyped_storage()._cdata for t in _locals(args)}
+    return sum(t.numel() * t.element_size() for t in _locals(out)
+               if t.untyped_storage()._cdata in held)
 
 
 def _collective_counts(walk: dict) -> dict:
@@ -189,11 +203,14 @@ def _mesh_dict(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
 
-def _memory(walk, argument_bytes: int, output_bytes: int) -> dict:
+def _memory(walk, argument_bytes: int, out, args) -> dict:
     """The record's ``memory`` from the walk's live bytes: the step's own
-    high-water mark over ``argument_bytes``."""
+    high-water mark over ``argument_bytes``; the outputs' local bytes and
+    those of them that alias an argument."""
     temp = walk.temp_peak_bytes
-    return {"argument_bytes": argument_bytes, "output_bytes": output_bytes,
+    return {"argument_bytes": argument_bytes,
+            "output_bytes": _local_bytes(out),
+            "alias_bytes": _alias_bytes(out, args),
             "temp_bytes": temp, "peak_bytes": argument_bytes + temp}
 
 
@@ -249,7 +266,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         "lower_s": round(t_build, 2),
         "compile_s": round(t_step, 2),
         "memory": dict(
-            _memory(w, arg_bytes(cell.args, me), _local_bytes(out)),
+            _memory(w, arg_bytes(cell.args, me), out, args),
             state_bytes_by_rank=state_bytes_by_rank(cell.args[0], mesh)),
         "flops": w.matmul_flops,
         "bytes_accessed": w.hbm_bytes,
@@ -327,7 +344,8 @@ def run_verify_cell(layout: str, multi_pod: bool = False,
         "mesh": _mesh_dict(mesh), "chips": n_chips,
         "lower_s": round(t_build, 2), "compile_s": round(t_round, 2),
         "memory": dict(
-            _memory(w, arg_bytes(full_args, me), _local_bytes(out)),
+            _memory(w, arg_bytes(full_args, me), out,
+                    (state, packed, speeds)),
             state_bytes_by_rank=state_bytes_by_rank(full_args[0], mesh)),
         "flops": w.matmul_flops,
         "bytes_accessed": w.hbm_bytes,

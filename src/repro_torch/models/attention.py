@@ -177,8 +177,19 @@ def full_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
     q, k, v = _project_qkv(p, cfg, x, x_kv)
     q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v)
     q, k = _rope(cfg, q, k, positions, kv_positions, positions3)
+    mask = layout.batch_rows(lambda *a: _full_mask(cfg, *a), x, positions,
+                             kv_positions, seg_mask)
+    return _out_proj(p, _attention(q, k, v, mask, cfg.head_dim))
 
-    mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool, device=x.device)
+
+def _full_mask(cfg: AttnConfig, positions: torch.Tensor,
+               kv_positions: torch.Tensor,
+               seg_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (B, 1, 1, S, T) mask of full-sequence attention: causal and
+    sliding-window from the positions, and ``seg_mask`` (B, S, T)."""
+    (b, s), t = positions.shape, kv_positions.shape[1]
+    mask = torch.ones((b, 1, 1, s, t), dtype=torch.bool,
+                      device=positions.device)
     if cfg.causal and not cfg.cross:
         mask &= (kv_positions[:, None, None, None, :]
                  <= positions[:, None, None, :, None])
@@ -187,7 +198,7 @@ def full_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, *,
                  - kv_positions[:, None, None, None, :]) < cfg.window
     if seg_mask is not None:
         mask &= seg_mask[:, None, None]
-    return _out_proj(p, _attention(q, k, v, mask, cfg.head_dim))
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +229,8 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     unwritten, in the future or outside the window are masked out."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)                       # (B,1,H,D)
-    q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v)
+    q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v,
+                                     split_queries=False)
     if cfg.mrope_sections is not None:
         # text-phase decode: all three position streams advance together
         q, k = _rope(cfg, q, k, None, None, pos[None, :, None].expand(3, b, 1))

@@ -175,14 +175,23 @@ def embed_apply(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed_apply(p: dict, x: torch.Tensor, tied: bool = True) -> torch.Tensor:
+    """``x @ w.T`` of the (V, d) table; a DTensor table through
+    ``layout.contract`` (each rank's own rows by its own vocab columns:
+    the weight gathered over the batch's mesh dims, never the rows)."""
     w = p["embedding"] if tied else p["unembed"]
+    if isinstance(w, DTensor):
+        return layout.contract(x, w.to(x.dtype).t(), 1)
     return torch.matmul(x, w.to(x.dtype).t())
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        vocab_real: int, ignore_id: int = -100) -> torch.Tensor:
     """Mean next-token CE over valid positions; padded vocab columns
-    masked."""
+    masked.  DTensor logits take the vocab-parallel loss
+    (``layout.cross_entropy``: each rank's own block, only per-row sums
+    across ranks)."""
+    if isinstance(logits, DTensor):
+        return layout.cross_entropy(logits, labels, vocab_real, ignore_id)
     v_pad = logits.shape[-1]
     if v_pad > vocab_real:
         mask = torch.arange(v_pad, device=logits.device) >= vocab_real

@@ -68,6 +68,12 @@ each of them on one rank and tallies four terms:
    swept only when the running total, which still counts the dead ones
    not yet swept, exceeds the mark: only then could a new mark be set, so
    the mark is exact without a scan of every live storage at every op.
+   Above 1 MiB the running total must pass the mark by 1/4096 of it
+   (``SWEEP_SLACK_SHIFT``) before a sweep: the mark is then within that
+   share below the step's true high-water mark, and a step whose live
+   bytes grow over many ops (a recurrence over thousands of time steps,
+   each op a little above the last mark) sweeps once every 1/4096 of
+   growth rather than at every op.
    What no dispatcher sees is not counted: an op's own scratch freed
    before it returns, and what a C++ backend allocates on its own
    threads (gloo's staging of CUDA tensors).
@@ -93,6 +99,10 @@ from torch.utils._pytree import tree_leaves
 
 # the CUDA caching allocator counts its blocks in 512-byte steps
 CUDA_ALLOC_GRANULE = 512
+# above SWEEP_EXACT_BELOW bytes a sweep waits for the running total to
+# pass the mark by mark >> SWEEP_SLACK_SHIFT (see the module docstring)
+SWEEP_EXACT_BELOW = 1 << 20
+SWEEP_SLACK_SHIFT = 12
 
 # (namespace, op name) -> (kind, index of the group argument); the
 # result's bytes are the output's (in place: the first argument's)
@@ -308,7 +318,9 @@ class DispatchWalk(TorchDispatchMode):
     def _allocate(self, func, args, kwargs, out, before) -> None:
         for t in _tensors((args, kwargs, out)):
             self._see(_storage(t), held=False)
-        if self.live_bytes > self.temp_peak_bytes or self.trace is not None:
+        mark = self.temp_peak_bytes
+        slack = 0 if mark < SWEEP_EXACT_BELOW else mark >> SWEEP_SLACK_SHIFT
+        if self.live_bytes > mark + slack or self.trace is not None:
             self._sweep()
             if self.live_bytes > self.temp_peak_bytes:
                 self.temp_peak_bytes = self.live_bytes

@@ -6,7 +6,9 @@ shape and dtype on the parameters' device.  The step count, learning rate,
 bias corrections and clip scale are float32 tensors, computed in the
 reference's order, so the schedule matches it within two ulps; each leaf
 is updated in one pass (the reference's three passes over the tree only
-keep JAX's un-zipping of tuple leaves unambiguous).
+keep JAX's un-zipping of tuple leaves unambiguous), in place: the
+counterpart of the reference's donated state (``donate_argnums=(0,)``),
+whose new parameters and moments XLA writes into the old buffers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import NamedTuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +77,15 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, opt: OptState):
-    """-> (new_params, new_opt, metrics)."""
+    """-> (params, opt, metrics), the state updated in place.
+
+    The counterpart of the reference's donated update: each leaf's new
+    parameter, ``mu`` and ``nu`` are written into the storage of the old
+    one (``copy_``), leaf by leaf, so that at most one leaf's temporaries
+    are live at a time and no second state is built.  Each value is the
+    out-of-place formula's, expression by expression, bit for bit.  The
+    returned trees are ``params``, ``opt.mu`` and ``opt.nu`` themselves;
+    ``opt.step`` is advanced in place too."""
     gnorm = global_norm(grads)
     clip = torch.tensor(cfg.clip_norm, dtype=torch.float32,
                         device=gnorm.device)
@@ -85,7 +95,6 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt: OptState):
     b1c = 1 - cfg.b1 ** step.to(torch.float32)
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
-    new_p, new_m, new_v = [], [], []
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(opt.mu),
                           leaves(opt.nu)):
         if isinstance(p, DTensor) and g.placements != p.placements:
@@ -94,16 +103,12 @@ def adamw_update(cfg: AdamWConfig, params, grads, opt: OptState):
             # update and both moments keep that layout
             g = g.redistribute(p.device_mesh, p.placements)
         g = g.to(torch.float32) * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mhat = m / b1c
-        vhat = v / b2c
-        p2 = p - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                       + cfg.weight_decay * p)
-        new_p.append(p2.to(p.dtype))
-        new_m.append(m)
-        new_v.append(v)
-    return (unflatten(params, new_p),
-            OptState(mu=unflatten(params, new_m), nu=unflatten(params, new_v),
-                     step=step),
-            {"grad_norm": gnorm, "lr": lr})
+        m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+        v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+        del g
+        # mhat = m / b1c and vhat = v / b2c inline: each temporary dies
+        # as soon as the next operation has read it
+        p.copy_((p - lr * (m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
+                           + cfg.weight_decay * p)).to(p.dtype))
+    opt.step.copy_(step)
+    return params, opt, {"grad_norm": gnorm, "lr": lr}

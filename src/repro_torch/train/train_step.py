@@ -9,6 +9,11 @@ the reference's ``lax.scan``: activation memory scales with the
 micro-batch while the optimizer sees the whole batch.  The optional
 error-feedback compression hook (``distributed.compression``) transforms
 the gradients before the update.
+
+The state is donated, as the reference's step donates it
+(``donate_argnums=(0,)``): the step writes the new parameters, moments,
+step counts and compression residual into the storages of the old ones.
+A caller that needs a state from before a step clones it first.
 """
 
 from __future__ import annotations
@@ -53,7 +58,11 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                     accum_steps: int = 1,
                     compressor=None) -> Callable:
     """loss_fn(params, batch) -> scalar.  Returns step(state, batch) ->
-    (state, metrics) with metrics ``loss``, ``grad_norm`` and ``lr``."""
+    (state, metrics) with metrics ``loss``, ``grad_norm`` and ``lr``.
+
+    The state is donated: the returned state's tensors are the caller's
+    own, updated in place, so the caller's old state is the new one after
+    the call (``adamw_update``)."""
 
     def step(state: TrainState, batch):
         if accum_steps > 1:
@@ -75,14 +84,16 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
         else:
             loss, grads = value_and_grad(loss_fn, state.params, batch)
 
-        err = state.compress_error
         if compressor is not None:
-            grads, err = compressor(grads, err)
+            grads, err = compressor(grads, state.compress_error)
+            with torch.no_grad():
+                for old, new in zip(leaves(state.compress_error),
+                                    leaves(err)):
+                    old.copy_(new)
+            del err
 
-        params, opt, metrics = adamw_update(opt_cfg, state.params, grads,
-                                            state.opt)
-        new_state = TrainState(params=params, opt=opt, step=state.step + 1,
-                               compress_error=err)
-        return new_state, dict(metrics, loss=loss)
+        _, _, metrics = adamw_update(opt_cfg, state.params, grads, state.opt)
+        state.step.add_(1)
+        return state, dict(metrics, loss=loss)
 
     return step

@@ -8,8 +8,10 @@ groups in this process (meta DTensors: no memory, no communication).
   runs rank 0's ops), and the 8 ranks together count the single-device
   step's FLOPs plus what the model axis
   replicates: the reduced config's one KV head does not split over 2
-  ranks, so attention (its ``bmm``s) and the K and V projections run
-  whole on both model ranks (``distributed/layout.py``).
+  ranks, so the K and V projections run whole on both model ranks, while
+  the query heads, and with them attention's ``bmm``s, split over them
+  (the reference's rules: ``q_heads`` over the model axis, ``kv_heads``
+  replicated; ``distributed/layout.py``).
 * A record of that cell on the (4, 2) mesh has the reference's keys
   (read from ``repro/launch/dryrun.py``'s source and its
   ``analyze_lowered``), its argument bytes equal the local bytes of the
@@ -20,6 +22,12 @@ groups in this process (meta DTensors: no memory, no communication).
   4,096 tuples; its argument bytes from the production layouts: the
   replicated state, the rank's 1,024 of 4,096 chunks, its worker's speed).
 * ``scripts/roofline_table.py`` reads a port record unchanged.
+* The train step is donated (updated in place, as the reference's
+  ``donate_argnums=(0,)``): the plain step's own bytes on one row stay
+  below its state's bytes, and a train record's outputs alias all of its
+  state (``memory.alias_bytes``).  Rank 0 of the (4, 2) mesh runs no op
+  whose result is larger than its own float32 block of the logits (the
+  vocab-parallel cross entropy and the LM head per rank).
 * The records' memory and cost fields are integers from the walk:
   ``peak_bytes == argument_bytes + temp_bytes``, ``flops`` and
   ``bytes_accessed`` the roofline's terms.  The (1, 1) cell's walk on
@@ -90,7 +98,15 @@ def _single_device_walk():
     batch = {"tokens": toks, "labels": toks}
     _, w = walk(make_train_step(model.loss_fn, AdamWConfig()), state, batch)
     _, g = walk(value_and_grad, model.loss_fn, state.params, batch)
-    return cfg, w, g
+    # one row of 8 tokens: the activations are small beside the state, so
+    # the optimizer's update sets the step's own mark
+    row = torch.empty((1, 8), dtype=torch.int32, device="meta")
+    _, small = walk(make_train_step(model.loss_fn, AdamWConfig()), state,
+                    {"tokens": row, "labels": row})
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in torch.utils._pytree.tree_leaves(state)
+                      if isinstance(t, torch.Tensor))
+    return cfg, w, g, (small, state_bytes)
 
 
 @pytest.fixture(scope="module")
@@ -103,7 +119,8 @@ def runs(tmp_path_factory):
     from repro_torch.launch.steps import build_cell, materialize
 
     out = {}
-    out["cfg"], out["single"], out["grad"] = _single_device_walk()
+    (out["cfg"], out["single"], out["grad"],
+     out["donated"]) = _single_device_walk()
     with dryrun.fake_group(1):
         mesh = make_debug_mesh(1, 1, "cpu")
         out["trace_dir"] = tmp_path_factory.mktemp("dryrun")
@@ -114,8 +131,10 @@ def runs(tmp_path_factory):
                         for dev in ("meta", "cpu")}
     with dryrun.fake_group(8):
         mesh = make_debug_mesh(4, 2, "cpu")
+        out["rank0_dir"] = tmp_path_factory.mktemp("dryrun_rank0")
         with CommDebugMode() as comm:
-            out["rank0"] = dryrun.run_cell("smollm-135m", SHAPE,
+            out["rank0"] = dryrun.run_cell("smollm-135m", SHAPE, False,
+                                           str(out["rank0_dir"]), True,
                                            reduced=True, mesh=mesh)
         out["comm"] = dict(comm.get_comm_counts())
         cell = build_cell("smollm-135m", SHAPE, mesh, reduced=True)
@@ -149,13 +168,45 @@ def test_ranks_sum_to_the_single_device_step_and_what_is_replicated(runs):
     assert len(set(runs["args_bytes_by_rank"])) == 1
     model_ranks = 2
     assert cfg.num_kv_heads % model_ranks != 0
-    attention = single["flops_by_op"]["aten.bmm"]
     tokens = SHAPE.global_batch * SHAPE.seq_len
     kv = cfg.num_kv_heads * cfg.head_dim_
-    # k and v, forward and the two gradients, every layer
+    # k and v, forward and the two gradients, every layer: the reference's
+    # rules replicate the KV heads over the model axis; the query heads
+    # (attention's ``bmm``s) split over it
     kv_proj = cfg.num_layers * 2 * 3 * (2 * tokens * cfg.d_model * kv)
-    replicated = (model_ranks - 1) * (attention + kv_proj)
+    replicated = (model_ranks - 1) * kv_proj
     assert 8 * _flops(runs["rank0"]) == SINGLE_DEVICE_FLOPS + replicated
+
+
+def test_the_donated_step_holds_no_second_state(runs):
+    """The plain step on one row of 8 tokens updates its state in place:
+    its own bytes above the state it holds (the gradients, a third of the
+    state, and one leaf's temporaries) stay below the state's bytes; a
+    step that built its new state beside the old one held a whole second
+    state."""
+    walk, state_bytes = runs["donated"]
+    mem = walk["memory"]
+    assert mem["held_bytes"] >= state_bytes
+    assert state_bytes // 3 < mem["temp_peak_bytes"] < state_bytes
+
+
+def test_no_rank_op_outputs_more_than_its_logits_block(runs):
+    """Rank 0 of the (4, 2) mesh: no op's result is larger than the rank's
+    own float32 block of the logits (its 2 of 8 rows, 256 of 512 vocab
+    columns): the vocab-parallel loss keeps the logits, and their
+    gradient, in blocks."""
+    cfg = runs["cfg"]
+    block = (SHAPE.global_batch // 4) * SHAPE.seq_len * (cfg.vocab_size
+                                                          // 2) * 4
+    path = runs["rank0_dir"] / "smollm-135m__train_4k__pod.trace.txt"
+    largest = 0
+    for line in path.read_text().splitlines()[2:]:
+        for shape, dtype in ast.literal_eval(line.split("\t")[3]):
+            n = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+            for d in shape:
+                n *= d
+            largest = max(largest, n)
+    assert 0 < largest <= block
 
 
 def _reference_record_keys(fn_name: str):
@@ -274,8 +325,13 @@ def test_memory_and_cost_fields_from_the_walk(runs, name):
     # the OLA round runs no matmul
     assert (rec["flops"] > 0) == (name != "verify")
     assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
-    # a step's own bytes hold at least its outputs
-    assert mem["temp_bytes"] >= mem["output_bytes"]
+    # a step's own bytes hold at least its outputs that alias no argument
+    # (the train step's state is donated: its outputs are its arguments)
+    assert 0 <= mem["alias_bytes"] <= mem["output_bytes"]
+    assert mem["temp_bytes"] >= mem["output_bytes"] - mem["alias_bytes"]
+    if name != "verify":
+        # the train step's outputs alias every byte of the state it took
+        assert mem["alias_bytes"] == mem["state_bytes_by_rank"][0][0]
     assert rec["flops"] == rf["hlo_flops_per_chip"]
     assert rec["bytes_accessed"] == rf["hlo_bytes_per_chip"]
     # the walk's granule is the CUDA caching allocator's

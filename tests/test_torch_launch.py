@@ -19,6 +19,23 @@ inputs.
   is 0.1 times the clipped gradient, so it holds each leaf's gradient to
   its size where the parameters see only its sign.  The updated
   parameters keep their layouts.
+* On ``(4, 2)`` the loss and every gradient leaf of two more train cells
+  equal the single device's (the same config, its heads padded for the
+  model axis, on one device) within 1e-5 relative in norm, a leaf whose
+  single-device gradient is rounding noise around zero (below 1e-6 of the
+  largest leaf's: the attention key bias) below that floor too:
+  smollm-135m with 9 query and 3 KV heads, padded to 10 and 5, so each
+  model rank's 5 query heads straddle KV groups (rank 0 reads KV heads 0,
+  0, 1, 1, 2), and a vocabulary of 500 padded to 512, whose padded
+  columns lie on the second model rank; and qwen2-vl-2b, whose loss
+  slices the logits (``logits[:, s_vis:]``).  The vocab-parallel cross
+  entropy alone (``layers.cross_entropy_loss`` on DTensor logits: batch
+  over data and vocab over model, or batch over both mesh dims) equals
+  the plain loss and its logits' gradient within 1e-5, the padded
+  columns' gradient exactly zero.  ``adamw_update`` on DTensor leaves
+  (sharded, replicated, a gradient in another layout) keeps every local
+  shard's storage and placements and equals the update of the whole
+  tensors within 1e-6 relative.
 * On ``(2, 2)``, the ``decode`` cell of qwen3-0.6b and of zamba2-1.2b
   (the module's parameters and caches as DTensors) equals single-device
   decode logits over three steps within 1e-5 of max |logit|.
@@ -56,6 +73,14 @@ TRAIN = ShapeSpec("train_small", 16, 8, "train")
 DECODE = ShapeSpec("decode_small", 16, 8, "decode")
 TRAIN_ARCHS = ("smollm-135m", "mixtral-8x7b")
 DECODE_ARCHS = ("qwen3-0.6b", "zamba2-1.2b")
+# gradient cells on the (4, 2) mesh: query heads straddling KV groups and
+# a padded vocabulary; the VLM's sliced logits
+GRAD_MESH = (4, 2)
+GRAD_CELLS = {"straddle": ("smollm-135m", dict(num_heads=9, num_kv_heads=3,
+                                               vocab_size=500)),
+              "vlm": ("qwen2-vl-2b", {})}
+NOISE = 1e-6            # a gradient leaf below this share of the largest
+CE_SHAPE, CE_VOCAB = (8, 4, 512), 500
 DECODE_STEPS = 3
 DECODE_MESH = (2, 2)
 CKPT_MESH, RESTORE_MESH = (2, 2), (2, 1)
@@ -126,6 +151,11 @@ def _rank_main(rank, ranks, init_file, out_dir, shape, ckpt_dir, ref_ckpt):
         if shape == CKPT_MESH and arch == TRAIN_ARCHS[0]:
             ckpt.save(ckpt_dir, 1, new)
             out["restore"] = _restore_on_submesh(rank, ckpt_dir, ref_ckpt)
+    if shape == GRAD_MESH:
+        out["grads"] = {name: _grad_cell(mesh, arch, ov)
+                        for name, (arch, ov) in GRAD_CELLS.items()}
+        out["ce"] = _vocab_parallel_ce(mesh)
+        out["adamw"] = _sharded_adamw(mesh)
     for arch in (DECODE_ARCHS if shape == DECODE_MESH else ()):
         cell = build_cell(arch, DECODE, mesh, overrides=_overrides(arch),
                           reduced=True)
@@ -148,6 +178,100 @@ def _rank_main(rank, ranks, init_file, out_dir, shape, ckpt_dir, ref_ckpt):
         with open(os.path.join(out_dir, "rank0.pkl"), "wb") as f:
             pickle.dump(out, f)
     dist.destroy_process_group()
+
+
+def _grad_cell(mesh, arch, overrides):
+    """The loss and gradients of ``arch``'s train cell (reduced, float32,
+    ``overrides``) on ``mesh``, whole, with the batch it ran on."""
+    from repro_torch.launch.steps import build_cell, materialize, run_cell
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cell = build_cell(arch, TRAIN, mesh, overrides=dict(
+        _overrides(arch), **overrides), reduced=True)
+    (state, batch), _ = materialize(cell, "cpu", seed=0)
+    grad_cell = cell._replace(fn=lambda st, b: value_and_grad(
+        cell.model.loss_fn, st.params, b))
+    loss, grads = run_cell(grad_cell, state, batch)
+    return {"batch": {k: v.full_tensor().detach().clone()
+                      for k, v in batch.items()},
+            "loss": float(_full(loss)),
+            "grads": {"/".join(map(str, p)): _full(g)
+                      for p, g in leaves_with_paths(grads)}}
+
+
+def _ce_inputs():
+    rng = np.random.default_rng(4)
+    logits = torch.as_tensor(rng.standard_normal(CE_SHAPE) * 3,
+                             dtype=torch.float32)
+    labels = torch.as_tensor(rng.integers(0, CE_VOCAB, CE_SHAPE[:2]),
+                             dtype=torch.int64)
+    labels[::3, 1] = -100                       # ignored positions
+    return logits, labels
+
+
+def _vocab_parallel_ce(mesh):
+    """``cross_entropy_loss`` and its logits' gradient on DTensor logits
+    of two layouts, whole."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.layers import cross_entropy_loss
+
+    logits, labels = _ce_inputs()
+    out = {}
+    for name, lay in (("vocab", (Shard(0), Shard(2))),
+                      ("batch", (Shard(0), Shard(0)))):
+        x = distribute_tensor(logits, mesh, lay).requires_grad_(True)
+        y = distribute_tensor(labels, mesh, (Shard(0), lay[1])
+                              if lay[1] == Shard(0) else (Shard(0),
+                                                          Replicate()))
+        loss = cross_entropy_loss(x, y, CE_VOCAB)
+        loss.backward()
+        out[name] = {"loss": float(_full(loss)), "grad": _full(x.grad),
+                     "placements": tuple(loss.placements)}
+    return out
+
+
+def _adamw_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"w": torch.as_tensor(rng.standard_normal((8, 6)),
+                                 dtype=torch.float32),
+            "b": torch.as_tensor(rng.standard_normal(6),
+                                 dtype=torch.float32)}
+
+
+def _sharded_adamw(mesh):
+    """``adamw_update`` on DTensor leaves: ``w`` sharded on both mesh dims,
+    ``b`` replicated, ``w``'s gradient replicated; whole results, and
+    whether every local shard kept its storage and every leaf its
+    placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update
+
+    lays = {"w": (Shard(0), Shard(1)), "b": (Replicate(), Replicate())}
+    params, grads = _adamw_tree(5), _adamw_tree(6)
+    mu, nu = _adamw_tree(7), _adamw_tree(8)
+    nu = {k: v.abs() for k, v in nu.items()}
+    d = {name: {k: distribute_tensor(t[k], mesh, lays[k]) for k in t}
+         for name, t in (("p", params), ("mu", mu), ("nu", nu))}
+    g = {"w": distribute_tensor(grads["w"], mesh, (Replicate(), Replicate())),
+         "b": distribute_tensor(grads["b"], mesh, lays["b"])}
+    step = distribute_tensor(torch.tensor(3, dtype=torch.int32), mesh,
+                             (Replicate(), Replicate()))
+    ptrs = [t.to_local().data_ptr() for tree in d.values()
+            for t in tree.values()] + [step.to_local().data_ptr()]
+    new_p, opt, _ = adamw_update(AdamWConfig(lr=1e-2, warmup_steps=2),
+                                 d["p"], g, OptState(mu=d["mu"], nu=d["nu"],
+                                                     step=step))
+    trees = (new_p, opt.mu, opt.nu)
+    kept = ptrs == [t.to_local().data_ptr() for tree in trees
+                    for t in tree.values()] + [opt.step.to_local().data_ptr()]
+    return {"kept": kept and all(
+        tuple(tree[k].placements) == lays[k] for tree in trees for k in tree),
+        "p": {k: _full(v) for k, v in new_p.items()},
+        "mu": {k: _full(v) for k, v in opt.mu.items()},
+        "nu": {k: _full(v) for k, v in opt.nu.items()}}
 
 
 def _restore_on_submesh(rank, ckpt_dir, ref_ckpt):
@@ -299,6 +423,92 @@ def test_train_cell_equals_single_device(runs, shape, arch):
             err = np.linalg.norm((got[name][k] - want).ravel())
             assert err <= RTOL * np.linalg.norm(want.ravel()), (name, k)
     assert got["layouts_kept"]
+
+
+def _single_grads(arch, overrides, batch):
+    """The loss and gradients of ``arch``'s reduced float32 config with
+    ``overrides``, its heads padded for the (4, 2) mesh's model axis, on
+    one device."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import tree_from_module
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import leaves_with_paths
+
+    cfg = dataclasses.replace(
+        get_config(arch, reduced=True, tp=GRAD_MESH[1]),
+        **_overrides(arch), **overrides)
+    model = build_model(cfg, device="cpu", seed=0)
+    loss, grads = value_and_grad(model.loss_fn, tree_from_module(model),
+                                 batch)
+    return cfg, float(loss), {"/".join(map(str, p)): g.numpy()
+                              for p, g in leaves_with_paths(grads)}
+
+
+@pytest.mark.parametrize("name", GRAD_CELLS)
+def test_grad_cell_equals_single_device(runs, name):
+    from repro_torch.models.transformer import _attn_config
+
+    got = runs["groups"][GRAD_MESH]["grads"][name]
+    arch, overrides = GRAD_CELLS[name]
+    cfg, loss, want = _single_grads(arch, overrides, got["batch"])
+    if name == "straddle":
+        # each model rank's 5 query heads straddle groups of G = 2, and
+        # the padded vocabulary's last columns lie on the second rank
+        acfg = _attn_config(cfg)
+        local = acfg.heads_padded // GRAD_MESH[1]
+        assert (acfg.heads_padded, acfg.kv_heads_padded) == (10, 5)
+        assert local % (acfg.heads_padded // acfg.kv_heads_padded) != 0
+        assert want["embedding"].shape[0] > cfg.vocab_size
+    assert abs(got["loss"] - loss) <= RTOL * abs(loss)
+    assert set(got["grads"]) == set(want)
+    floor = NOISE * max(np.abs(w).max() for w in want.values())
+    for k, w in want.items():
+        g = got["grads"][k]
+        assert g.shape == w.shape, k
+        if np.abs(w).max() <= floor:
+            assert np.abs(g).max() <= floor, k
+            continue
+        assert np.linalg.norm(g - w) <= RTOL * np.linalg.norm(w), k
+
+
+@pytest.mark.parametrize("layout", ["vocab", "batch"])
+def test_vocab_parallel_cross_entropy_equals_plain(runs, layout):
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.models.layers import cross_entropy_loss
+
+    got = runs["groups"][GRAD_MESH]["ce"][layout]
+    logits, labels = _ce_inputs()
+    x = logits.clone().requires_grad_(True)
+    loss = cross_entropy_loss(x, labels, CE_VOCAB)
+    loss.backward()
+    want = x.grad.numpy()
+    loss = float(loss.detach())
+    assert abs(got["loss"] - loss) <= RTOL * abs(loss)
+    assert np.linalg.norm(got["grad"] - want) <= RTOL * np.linalg.norm(want)
+    # the padded columns stay masked: no gradient reaches them
+    assert not got["grad"][..., CE_VOCAB:].any()
+    assert got["placements"] == (Replicate(), Replicate())
+
+
+def test_sharded_adamw_keeps_storages_and_equals_whole(runs):
+    from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update
+
+    got = runs["groups"][GRAD_MESH]["adamw"]
+    assert got["kept"]
+    nu = {k: v.abs() for k, v in _adamw_tree(8).items()}
+    params, opt, _ = adamw_update(
+        AdamWConfig(lr=1e-2, warmup_steps=2), _adamw_tree(5), _adamw_tree(6),
+        OptState(mu=_adamw_tree(7), nu=nu,
+                 step=torch.tensor(3, dtype=torch.int32)))
+    for name, tree in (("p", params), ("mu", opt.mu), ("nu", opt.nu)):
+        for k, want in tree.items():
+            want = want.numpy()
+            assert np.abs(got[name][k] - want).max() <= 1e-6 * np.abs(
+                want).max(), (name, k)
 
 
 @pytest.mark.parametrize("arch", DECODE_ARCHS)

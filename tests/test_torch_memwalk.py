@@ -5,7 +5,9 @@ caching allocator's 512 B.
 Every case runs on the CPU and on the meta device, with the same answer.
 A float32 tensor of 1,000 elements is ``R`` = 4,000 B (4,096 B at granule
 512), a float32 scalar ``r`` = 4 B (512 B).  ``x`` is held (the step's
-argument): it is never the step's own.
+argument): it is never the step's own.  Above 1 MiB the mark is held to
+within 1/4096 of itself (the walk sweeps once a slack of growth), with
+far fewer sweeps than ops.
 """
 
 import pytest
@@ -176,3 +178,26 @@ def test_trace_file_marks_the_peak(tmp_path):
     assert len(marked) == 1
     assert marked[0].split("\t")[:2] == [str(w.peak_index), w.peak_op]
     assert body[0].split("\t")[-1] == "4000"
+
+
+def test_growing_live_bytes_sweep_once_a_slack(x, monkeypatch):
+    """Above 1 MiB the walk sweeps only when its running total passes the
+    mark by 1/4096 of it: 2,000 small results kept alive one op after
+    another over a 2 MiB base sweep far fewer times than there are ops,
+    and the mark stays within that share below the true one."""
+    from repro_torch.roofline import dispatch_walk
+
+    sweeps = []
+    real = DispatchWalk._sweep
+    monkeypatch.setattr(DispatchWalk, "_sweep",
+                        lambda self: sweeps.append(self.ops) or real(self))
+    base, n, size = 1 << 21, 2000, 64
+    keep = []
+    with DispatchWalk(hold=x, granule=1) as w:
+        keep.append(torch.empty(base // 4, device=x.device))
+        for _ in range(n):
+            keep.append(x[:size // 4] + 1)
+    true = base + n * size
+    assert true - (true >> dispatch_walk.SWEEP_SLACK_SHIFT) \
+        <= w.temp_peak_bytes <= true
+    assert 0 < len(sweeps) < n // 4

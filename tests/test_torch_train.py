@@ -8,7 +8,11 @@ stated where it is used.
   reference's cosine is not correctly rounded on some angles, the port's
   is, and ``1 + cos`` magnifies one ulp of it to 2-4 ulps of the rate.
 * ``adamw_update`` on a random tree, clipping active and inactive:
-  parameters, moments, ``grad_norm`` and ``lr`` within a relative 1e-6.
+  parameters, moments, ``grad_norm`` and ``lr`` within a relative 1e-6,
+  for one step and for two in a row.  It updates in place (the
+  reference's donation): every parameter, moment and the step count keep
+  their storages, and their values are the out-of-place formula's
+  (written out in the test) bit for bit.
 * The quadratic bowl: 300 steps equal the reference's eager steps bit for
   bit and converge (atol 0.05, the reference's own test).
 * Carried smollm-135m (reduced) weights: at float32 compute, loss within a
@@ -168,6 +172,73 @@ def test_adamw_update_matches_reference(gscale):
         assert float(tm[k]) == pytest.approx(float(jm[k]), rel=1e-6)
 
 
+@pytest.mark.parametrize("gscale", [0.01, 10.0], ids=["unclipped", "clipped"])
+def test_adamw_update_is_in_place_and_the_formula_bit_for_bit(gscale):
+    rng = np.random.default_rng(11)
+    params, grads = _t(_random_tree(rng)), _t(_random_tree(rng, gscale))
+    mu = _t(_random_tree(rng, 0.1))
+    nu = tree_map(torch.abs, _t(_random_tree(rng, 0.1)))
+    step0 = torch.tensor(5, dtype=torch.int32)
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=3, total_steps=50)
+    # the out-of-place update, written out
+    g2 = sum(torch.sum(torch.square(g)) for g in leaves(grads))
+    gnorm = torch.sqrt(g2)
+    scale = torch.clamp(torch.tensor(cfg.clip_norm) / torch.clamp(
+        gnorm, min=1e-9), max=1.0)
+    step = step0 + 1
+    lr = lr_at(cfg, step)
+    b1c = 1 - cfg.b1 ** step.to(torch.float32)
+    b2c = 1 - cfg.b2 ** step.to(torch.float32)
+    want = {"p": [], "m": [], "v": []}
+    for p, g, m, v in zip(leaves(params), leaves(grads), leaves(mu),
+                          leaves(nu)):
+        g = g * scale
+        m2 = cfg.b1 * m + (1 - cfg.b1) * g
+        v2 = cfg.b2 * v + (1 - cfg.b2) * g * g
+        want["m"].append(m2)
+        want["v"].append(v2)
+        want["p"].append(p - lr * ((m2 / b1c) / (torch.sqrt(v2 / b2c)
+                                                 + cfg.eps)
+                                   + cfg.weight_decay * p))
+    before = [t.data_ptr() for t in leaves((params, mu, nu, step0))]
+    new_p, opt, metrics = adamw_update(cfg, params, grads,
+                                       OptState(mu=mu, nu=nu, step=step0))
+    assert [t.data_ptr() for t in leaves((new_p, opt.mu, opt.nu,
+                                          opt.step))] == before
+    assert new_p is params and opt.mu is mu and opt.nu is nu
+    assert int(step0) == 6 and opt.step is step0
+    for got, key in ((params, "p"), (mu, "m"), (nu, "v")):
+        for a, b in zip(leaves(got), want[key]):
+            assert torch.equal(a, b), key
+    assert torch.equal(metrics["grad_norm"], gnorm)
+    assert torch.equal(metrics["lr"], lr)
+
+
+def test_two_adamw_updates_match_reference():
+    """Two updates in a row from the same seeded leaves, each with its own
+    gradients, the port's in place: within a relative 1e-6 after each."""
+    rng = np.random.default_rng(12)
+    params = _random_tree(rng)
+    grads = [_random_tree(rng, 0.5), _random_tree(rng, 3.0)]
+    mu = _random_tree(rng, 0.1)
+    nu = jax.tree.map(np.abs, _random_tree(rng, 0.1))
+    cfg = dict(lr=1e-2, warmup_steps=1, total_steps=20)
+    jstate = (params, JOptState(mu=mu, nu=nu, step=jnp.asarray(0)))
+    tparams = _t(params)
+    topt = OptState(mu=_t(mu), nu=_t(nu),
+                    step=torch.tensor(0, dtype=torch.int32))
+    for g in grads:
+        jp, jo, jm = j_update(JAdamW(**cfg), *jstate[:1], g, jstate[1])
+        jstate = (jp, jo)
+        tp, to, tm = adamw_update(AdamWConfig(**cfg), tparams, _t(g), topt)
+        assert tp is tparams and to.mu is topt.mu
+        for got, want in ((tp, jp), (to.mu, jo.mu), (to.nu, jo.nu)):
+            assert _rel(got, want) <= 1e-6
+        assert int(to.step) == int(jo.step)
+        assert float(tm["grad_norm"]) == pytest.approx(
+            float(jm["grad_norm"]), rel=1e-6)
+
+
 def _bowl(torch_side: bool):
     target = np.asarray([1.0, -2.0, 3.0], np.float32)
     if torch_side:
@@ -275,8 +346,10 @@ def test_grad_accumulation_matches_single_step_and_reference():
     jm, params, tm, tree = _carried("float32")
     jb, tb = _batch(tm.cfg)
     ocfg = dict(lr=1e-3, warmup_steps=0)
+    # the step is donated (it updates its state in place): each run starts
+    # from its own copy of the weights
     s1, m1 = make_train_step(tm.loss_fn, AdamWConfig(**ocfg))(
-        init_train_state(tree), tb)
+        init_train_state(tree_map(torch.clone, tree)), tb)
     s2, m2 = make_train_step(tm.loss_fn, AdamWConfig(**ocfg),
                              accum_steps=2)(init_train_state(tree), tb)
     assert float(m2["loss"]) == pytest.approx(float(m1["loss"]), rel=1e-4)
