@@ -4851,48 +4851,81 @@ SHARD_MESH = (2, 2)
 SHARD_BATCH, SHARD_SEQ = 4, 128
 SHARD_STEPS = 2
 SHARD_PARITY_LAYERS = 4
-# the decode cell's parity: qwen3-0.6b at its published widths, 4 layers,
-# float32, B = 4, a 64-slot cache, 2 steps
-SHARD_DECODE_ARCH = "qwen3-0.6b"
+# the decode cells' parity, each at its published widths, 4 layers,
+# float32, B = 4, a 64-slot cache, 2 steps: qwen3-0.6b (8 KV heads: the
+# cache over the heads on the model axis), smollm-135m (3 KV heads padded
+# to 5: over T, the softmax split over the model ranks) and
+# whisper-large-v3 (self- and cross-attention caches over the heads)
+SHARD_DECODE_ARCHS = ("qwen3-0.6b", "smollm-135m", "whisper-large-v3")
 SHARD_DECODE = dict(batch=4, seq=64, steps=2)
 
 
-def shard_decode_parity(mesh, device, rank: int, reduced: bool):
-    """The decode cell of SHARD_DECODE_ARCH (float32, SHARD_PARITY_LAYERS
-    layers) on ``mesh`` over SHARD_DECODE's steps; on rank 0 the largest
-    |logit difference| to the single-device decode, relative to the
-    largest |logit|, else None."""
-    from torch.distributed.tensor import DTensor
-
+def shard_decode_spec():
+    """SHARD_DECODE's shape and the overrides of [shard]'s decode cells:
+    float32, SHARD_PARITY_LAYERS layers."""
     from repro_torch.configs.registry import ShapeSpec
+
+    return (ShapeSpec("decode", SHARD_DECODE["seq"], SHARD_DECODE["batch"],
+                      "decode"),
+            dict(compute_dtype="float32", num_layers=SHARD_PARITY_LAYERS))
+
+
+def shard_decode_parity(mesh, device, rank: int, reduced: bool) -> dict:
+    """Each of SHARD_DECODE_ARCHS' decode cells (``shard_decode_spec``) on
+    ``mesh`` over SHARD_DECODE's steps: by arch, the first step's
+    collectives (``CommDebugMode``), the KV cache's placements and, on
+    rank 0, the largest |logit difference| to the single-device decode
+    (the same config on one device), relative to the largest |logit|
+    (None on the other ranks)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
     from repro_torch.distributed.sharding import distribute
     from repro_torch.launch.steps import build_cell, materialize, run_cell
 
     b, t = SHARD_DECODE["batch"], SHARD_DECODE["seq"]
-    cell = build_cell(SHARD_DECODE_ARCH, ShapeSpec("decode", t, b, "decode"),
-                      mesh, reduced=reduced,
-                      overrides=dict(compute_dtype="float32",
-                                     num_layers=SHARD_PARITY_LAYERS))
-    (module, cache, _, _), _ = materialize(cell, device, seed=0)
-    single = build_model(cell.cfg, device=device, seed=0) if rank == 0 \
-        else None
-    cache1 = (single.init_cache(b, t, dtype=torch.float32) if single
-              else None)
-    rng = np.random.default_rng(1)
-    worst = 0.0
-    for step in range(SHARD_DECODE["steps"]):
-        toks = torch.as_tensor(rng.integers(0, cell.cfg.vocab_size, (b, 1)),
-                               dtype=torch.int32, device=device)
-        pos = torch.full((b,), step, dtype=torch.int32, device=device)
-        lo, cache = run_cell(cell, module, cache,
-                             distribute(toks, cell.args[2].sharding),
-                             distribute(pos, cell.args[3].sharding))
-        lo = lo.full_tensor() if isinstance(lo, DTensor) else lo
-        if single is not None:
-            l1, cache1 = single.decode_step(cache1, toks, pos)
-            worst = max(worst, float((lo - l1).abs().max()
-                                     / l1.abs().max()))
-    return worst if rank == 0 else None
+    shape, overrides = shard_decode_spec()
+
+    def full(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    out = {}
+    for arch in SHARD_DECODE_ARCHS:
+        cell = build_cell(arch, shape, mesh, reduced=reduced,
+                          overrides=overrides)
+        args, _ = materialize(cell, device, seed=0)
+        (module, cache), cross = args[:2], args[4:]
+        kv = cache["self"] if "self" in cache else cache
+        layout = str(tuple(kv["k"].placements))
+        single = build_model(cell.cfg, device=device, seed=0) if rank == 0 \
+            else None
+        cache1 = (single.init_cache(b, t, dtype=torch.float32) if single
+                  else None)
+        cross1 = [tuple(full(x) for x in c) for c in cross]
+        rng = np.random.default_rng(1)
+        worst, comm = 0.0, None
+        for step in range(SHARD_DECODE["steps"]):
+            toks = torch.as_tensor(rng.integers(0, cell.cfg.vocab_size,
+                                                (b, 1)),
+                                   dtype=torch.int32, device=device)
+            pos = torch.full((b,), step, dtype=torch.int32, device=device)
+            tok_d = distribute(toks, cell.args[2].sharding)
+            pos_d = distribute(pos, cell.args[3].sharding)
+            with CommDebugMode() as mode:
+                lo, cache = run_cell(cell, module, cache, tok_d, pos_d,
+                                     *cross)
+            if comm is None:
+                comm = {str(k): v for k, v in mode.get_comm_counts().items()}
+            lo = full(lo)
+            if single is not None:
+                l1, cache1 = single.decode_step(cache1, toks, pos, *cross1)
+                worst = max(worst, float((lo - l1).abs().max()
+                                         / l1.abs().max()))
+        out[arch] = dict(worst=worst if rank == 0 else None, comm=comm,
+                         layout=layout)
+        del module, cache, single, cache1, args, cross, cross1
+        gc.collect()
+    return out
 
 
 def shard_rank(rank: int, ranks: int, init_file: str, out_dir: str,
@@ -5041,10 +5074,10 @@ def phase_shard(card: str, device: str = "cuda",
     (loss, grad_norm, the updated parameters and Adam's first moment
     within 1e-5 relative, each leaf in norm: at the first step the moment
     is the leaf's scaled gradient), every block's output reaching
-    ``constrain("btd")`` batch-sharded over data on a traced step, and the
-    SHARD_DECODE_ARCH decode cell equal to single-device decode within
-    1e-5 of the largest logit; ms a step, collectives a step, each rank's
-    peak memory and resident state."""
+    ``constrain("btd")`` batch-sharded over data on a traced step, and each
+    of SHARD_DECODE_ARCHS' decode cells equal to single-device decode
+    within 1e-5 of the largest logit; ms a step, collectives a step, each
+    rank's peak memory and resident state."""
     ranks = SHARD_MESH[0] * SHARD_MESH[1]
     t0 = time.perf_counter()
     outs = spawn_ranks(shard_rank, ranks, (device, reduced), "[shard]")
@@ -5054,10 +5087,11 @@ def phase_shard(card: str, device: str = "cuda",
         raise AssertionError(f"[shard] the {SHARD_PARITY_LAYERS}-layer "
                              f"float32 step differs from the single-device "
                              f"step: {par}")
-    if not outs[0]["decode"] <= 1e-5:
-        raise AssertionError(f"[shard] the {SHARD_DECODE_ARCH} decode cell "
-                             f"differs from single-device decode: "
-                             f"{outs[0]['decode']} of the largest logit")
+    for arch, dec in outs[0]["decode"].items():
+        if not dec["worst"] <= 1e-5:
+            raise AssertionError(f"[shard] the {arch} decode cell differs "
+                                 f"from single-device decode: "
+                                 f"{dec['worst']} of the largest logit")
     from torch.distributed.tensor import Replicate, Shard
 
     # the first constrain("btd") takes the embedding's output, each later
@@ -5093,11 +5127,12 @@ def phase_shard(card: str, device: str = "cuda",
         f"float32 step == the single-device step on the card (loss "
         f"{par['loss']:.2e}, grad_norm {par['gnorm']:.2e}, parameters "
         f"{par['params']:.2e}, first moments {par['mu']:.2e} relative); "
-        f"the {SHARD_DECODE_ARCH} decode "
-        f"cell ({SHARD_PARITY_LAYERS} layers, float32, B = "
-        f"{SHARD_DECODE['batch']}, {SHARD_DECODE['steps']} steps) == "
-        f"single-device decode within {outs[0]['decode']:.2e} of the "
-        f"largest logit; every block's output batch over data at "
+        f"the decode cells ({SHARD_PARITY_LAYERS} layers, float32, B = "
+        f"{SHARD_DECODE['batch']}, {SHARD_DECODE['seq']} slots, "
+        f"{SHARD_DECODE['steps']} steps) == single-device decode within "
+        + ", ".join(f"{a} {d['worst']:.2e} (cache {d['layout']})"
+                    for a, d in outs[0]["decode"].items())
+        + f" of the largest logit; every block's output batch over data at "
         f"constrain('btd') (given {given}, "
         f"the embedding's {o['btd'][0][0]}; "
         f"{sum(g != k for g, k in o['btd'])} of {len(o['btd'])} calls "
@@ -5131,6 +5166,9 @@ def phase_shard(card: str, device: str = "cuda",
 # (data 2, model 2) mesh, [train]'s step on one rank; and [train]'s plain
 # step (train_step_ms's program, no mesh) walked on meta for its memory
 DRYRUN_PRODUCTION = dict(arch=SHARD_ARCH, shape="train_4k", ranks=256)
+# cached decode on the production mesh: each rank attends over its own
+# block of the KV cache, and no all-gather moves the cache
+DRYRUN_DECODE = dict(arch="qwen3-0.6b", shape="decode_32k", ranks=256)
 # the production rank's matmul FLOPs a step at most: its share of the
 # model's (heads split 16 ways, the K/V projections replicated, remat's
 # second forward) is ~1.7e13
@@ -5154,28 +5192,39 @@ def comm_kinds(counts: dict) -> dict:
 
 
 def dryrun_proc(rank: int, ranks: int, init_file: str, out_dir: str) -> None:
-    """[dryrun]'s process: the three records, each on its own fake group,
-    and the seconds of each."""
+    """[dryrun]'s process: the records, each on its own fake group (the
+    decode cells of [shard] on one), and the seconds of each."""
     import pickle
 
     from repro_torch.configs.registry import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
 
+    decode_shape, decode_overrides = shard_decode_spec()
     cells = (
         ("production", DRYRUN_PRODUCTION["arch"], DRYRUN_PRODUCTION["ranks"],
-         None, DRYRUN_PRODUCTION["shape"]),
+         None, DRYRUN_PRODUCTION["shape"], None),
+        ("decode", DRYRUN_DECODE["arch"], DRYRUN_DECODE["ranks"], None,
+         DRYRUN_DECODE["shape"], None),
         ("shard", SHARD_ARCH, SHARD_MESH[0] * SHARD_MESH[1], SHARD_MESH,
-         ShapeSpec("train_4k", SHARD_SEQ, SHARD_BATCH, "train")),
+         ShapeSpec("train_4k", SHARD_SEQ, SHARD_BATCH, "train"), None),
+        ("shard_decode", SHARD_DECODE_ARCHS, SHARD_MESH[0] * SHARD_MESH[1],
+         SHARD_MESH, decode_shape, decode_overrides),
         ("train", TRAIN_ARCH, 1, (1, 1),
-         ShapeSpec("train_4k", TRAIN["seq_len"], TRAIN["batch"], "train")))
+         ShapeSpec("train_4k", TRAIN["seq_len"], TRAIN["batch"], "train"),
+         None))
     out, secs = {}, {}
-    for name, arch, world, mesh_shape, shape in cells:
+    for name, archs, world, mesh_shape, shape, overrides in cells:
         t0 = time.perf_counter()
         with dryrun.fake_group(world):
             mesh = (make_debug_mesh(*mesh_shape, device_type="cpu")
                     if mesh_shape else None)
-            out[name] = dryrun.run_cell(arch, shape, mesh=mesh)
+            recs = {arch: dryrun.run_cell(arch, shape, mesh=mesh,
+                                          overrides=overrides)
+                    for arch in ((archs,) if isinstance(archs, str)
+                                 else archs)}
+        # [shard]'s decode cells by arch, every other record alone
+        out[name] = recs if isinstance(archs, tuple) else recs[archs]
         secs[name] = time.perf_counter() - t0
     t0 = time.perf_counter()
     out["train_plain"] = train_step_walk()
@@ -5246,7 +5295,7 @@ def memory_gaps(tag: str, predicted: int, measured: list) -> list:
 
 def phase_dryrun(card: str, shard: dict, train_ms: float,
                  train_bytes: int) -> dict:
-    """launch/dryrun.py's three records (``dryrun_proc``): each priced with
+    """launch/dryrun.py's records (``dryrun_proc``): each priced with
     roofline/hw.py's H100 constants, finite; [shard]'s cell's state bytes
     a rank, from its layouts, equal to ``shard``'s measured resident bytes
     on every rank, and its collectives by kind equal to ``shard``'s first
@@ -5254,11 +5303,34 @@ def phase_dryrun(card: str, shard: dict, train_ms: float,
     measured median.  Memory: [shard]'s cell's ``temp_bytes`` within
     DRYRUN_MEMORY_TOL of each rank's first step's own high-water mark, and
     the walk of [train]'s plain step within it of ``train_bytes``, that
-    step's measured mark; the production record's peak a rank, modeled."""
+    step's measured mark; the production record's peak a rank, modeled.
+    Cached decode: DRYRUN_DECODE's record and [shard]'s decode cells move
+    no block of the KV cache in an all-gather, and each of [shard]'s
+    decode cells has the collectives by kind of its first step there."""
     t0 = time.perf_counter()
     out = spawn_ranks(dryrun_proc, 1, (), "[dryrun]")[0]
     secs = time.perf_counter() - t0
     prod, cell, one = out["production"], out["shard"], out["train"]
+    decode, shard_decode = out["decode"], out["shard_decode"]
+    # cached decode: finite terms, the peak from the walk, and no
+    # all-gather that moves a block of the KV cache
+    for tag, rec in (("decode", decode), *shard_decode.items()):
+        rf, mem = rec["roofline"], rec["memory"]
+        terms = [rf[k] for k in ("compute_s", "memory_s", "collective_s")]
+        if not (np.all(np.isfinite(terms)) and rf["hlo_flops_per_chip"] > 0
+                and mem["peak_bytes"] == mem["argument_bytes"]
+                + mem["temp_bytes"]
+                and rec["kv_cache_gather_bytes"] == 0):
+            raise AssertionError(f"[dryrun] {tag} decode: roofline {rf}, "
+                                 f"memory {mem}, KV-cache all-gathers "
+                                 f"{rec['kv_cache_gather_bytes']} B")
+    for arch, rec in shard_decode.items():
+        got = comm_kinds(shard["ranks"][0]["decode"][arch]["comm"])
+        if rec["collective_counts"] != got:
+            raise AssertionError(f"[dryrun] [shard]'s {arch} decode cell: "
+                                 f"collectives {rec['collective_counts']} "
+                                 f"in the walk, {got} in [shard]'s first "
+                                 f"decode step")
     for tag, rec in (("production", prod), ("shard", cell), ("train", one)):
         rf = rec["roofline"]
         terms = [rf[k] for k in ("compute_s", "memory_s", "collective_s")]
@@ -5380,6 +5452,19 @@ def phase_dryrun(card: str, shard: dict, train_ms: float,
         f"the H100's {H100_SXM.hbm_bytes:.0f} B; matmul FLOPs a rank "
         f"{prod['flops']:.6g} below {DRYRUN_PRODUCTION_FLOPS:.6g}, useful "
         f"ratio {rf['useful_flops_ratio']:.6g}")
+    rf = decode["roofline"]
+    log(f"[dryrun] modeled, not measured: {decode['arch']} "
+        f"{decode['shape']} on {decode['chips']} ranks {decode['mesh']}: "
+        f"all-gathers of KV-cache blocks {decode['kv_cache_gather_bytes']} "
+        f"B a rank (gate 0); collectives {decode['collective_counts']}, "
+        f"{rf['collective_detail']['inter_node_bytes']:.6g} B inter-node; "
+        f"peak a rank {mib(decode['memory']['peak_bytes'])} MiB; "
+        f"{terms(decode)}")
+    log(f"[dryrun] [shard]'s decode cells on {SHARD_MESH}: collectives a "
+        f"step (the walk) == [shard]'s first decode step's (CommDebugMode): "
+        + "; ".join(f"{a} {r['collective_counts']}, KV-cache all-gathers "
+                    f"{r['kv_cache_gather_bytes']} B"
+                    for a, r in shard_decode.items()))
     log(f"[dryrun] {secs:.1f} s with the spawn (cells: "
         + ", ".join(f"{k} {v:.1f}" for k, v in out["secs"].items()) + ")")
     return dict(records=out, seconds=secs, bound_ms=bound_ms,

@@ -128,24 +128,22 @@ def embedding(table: DTensor, tokens: torch.Tensor):
                        table.redistribute(table.device_mesh, keep))
 
 
-def attention_heads(x, kv_heads: int, q, k, v, split_queries: bool = True):
+def attention_heads(x, kv_heads: int, q, k, v):
     """DTensors ``q``, ``k``, ``v`` (B, S|T, H, D) of the attention on
     input ``x`` (B, S, d), in its per-rank layout: ``x``'s batch sharding,
     and on the tensor-parallel mesh dim the reference's rules (``q_heads``
     over the model axis, ``kv_heads`` replicated): the KV heads split when
     the axis divides their count (each rank's query heads then read only
     its own KV heads), else whole on every rank, and the query heads split
-    either way (their count is padded to a multiple of the axis) unless
-    ``split_queries`` is off, when they follow the KV heads (the decode
-    path, whose cache keeps that layout).  Plain tensors are returned as
-    they are."""
+    either way (their count is padded to a multiple of the axis).  Plain
+    tensors are returned as they are."""
     if not isinstance(x, DTensor):
         return q, k, v
     mesh = x.device_mesh
     tp = tensor_dim(mesh)
     n = mesh.size(tp) if tp >= 0 else 1
     kv_split = kv_heads % n == 0
-    q_split = kv_split or (split_queries and q.shape[2] % n == 0)
+    q_split = kv_split or q.shape[2] % n == 0
 
     def layout(split: bool) -> tuple:
         return tuple(Shard(0) if _is_batch(p)
@@ -196,6 +194,62 @@ def attend(fn, q, k, v, mask):
     return local_map(own_heads, out_placements=(q_pl,),
                      in_placements=(q_pl, kv_pl, kv_pl, batch),
                      in_grad_placements=(q_pl, kv_grad, kv_grad, batch),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, mask)
+
+
+def decode_attend(fn, q, k, v, mask):
+    """``fn(q, k, v, mask, reduce)``: cached decode's attention of ``q``
+    (B, 1, H, D) over the cache's ``k``, ``v`` (B, T, Hk, D) where
+    ``mask`` (B, 1, 1, 1, T) holds (None: every slot).  ``reduce`` is
+    None, or ``reduce(t, op)`` all-reduces ``t`` (``op`` "max" or "sum")
+    over the ranks that hold the other blocks of T, so that ``fn`` splits
+    its softmax over T.
+
+    On DTensors each rank computes on its own block of the cache, which
+    never moves: the layout is the cache's (its batch rows on the mesh
+    dims that split them), and on the tensor-parallel mesh dim, by the
+    cache's placement there (``launch/steps.py::_kv_cache_shardings``):
+
+    * the KV heads (the axis divides their count): the query heads follow
+      them, and the mask, sharded over T with the cached positions, is
+      gathered over T (B_loc × T booleans);
+    * T: the query heads are gathered (B_loc × H × D), each rank scores
+      its own block of T under its own block of the mask, and ``reduce``
+      all-reduces the softmax's row max, its sum and the output over the
+      tensor-parallel ranks (``_c10d_functional`` collectives on the mesh
+      dim's group, which the dry run's walk and ``CommDebugMode`` count
+      alike);
+    * neither (replicated): each rank computes its batch rows whole.
+
+    The result has the query's heads in the layout ``fn`` saw them:
+    split where the KV heads are, else whole."""
+    if not isinstance(k, DTensor):
+        return fn(q, k, v, mask, None)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, kv_pl = k.device_mesh, tuple(k.placements)
+    tp = tensor_dim(mesh)
+    if any(p not in ((Shard(0), Replicate()) if md != tp else
+                     (Shard(1), Shard(2), Replicate()))
+           for md, p in enumerate(kv_pl)):
+        raise ValueError(f"decode_attend: a cache laid out {kv_pl}")
+    q_pl, m_pl = list(kv_pl), list(kv_pl)
+    reduce = None
+    if tp >= 0 and kv_pl[tp] == Shard(1):
+        q_pl[tp], m_pl[tp] = Replicate(), Shard(4)
+        group = mesh.get_group(tp).group_name
+        ops = torch.ops._c10d_functional
+
+        def reduce(t, op):
+            return ops.wait_tensor(ops.all_reduce(t, op, group))
+    elif tp >= 0:
+        m_pl[tp] = Replicate()
+    q_pl = tuple(q_pl)
+    return local_map(lambda ql, kl, vl, ml: fn(ql, kl, vl, ml, reduce),
+                     out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl,
+                                    None if mask is None else tuple(m_pl)),
                      device_mesh=mesh, redistribute_inputs=True)(
         q, k, v, mask)
 

@@ -61,7 +61,7 @@ bytes and the live bytes after it, the high-water mark's op marked),
 as the reference's ``--save-hlo`` writes its compiled HLO.  Added:
 ``memory.state_bytes_by_rank`` (the step's first argument, each rank's
 local bytes in rank order, as runs ``[bytes, ranks]``),
-``collective_counts`` by kind and ``device``.
+``collective_counts`` by kind, ``kv_cache_gather_bytes`` and ``device``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k
@@ -199,6 +199,17 @@ def _collective_counts(walk: dict) -> dict:
     return dict(collections.Counter(c.kind for c in walk["collectives"]))
 
 
+def kv_cache_gather_bytes(collectives, head_dim: int) -> int:
+    """The result bytes of the all-gathers that move blocks of a KV cache
+    (B, T, H, D) in a decode step: floating results of 4 dims whose last
+    is ``head_dim`` and whose second holds more than one slot (a step's
+    own query, key and value hold one)."""
+    return sum(c.nbytes for c in collectives
+               if c.kind == "all-gather" and len(c.shape) == 4
+               and c.shape[-1] == head_dim and c.shape[1] > 1
+               and c.dtype is not None and c.dtype.is_floating_point)
+
+
 def _mesh_dict(mesh) -> dict:
     return dict(zip(mesh.mesh_dim_names, (int(n) for n in mesh.shape)))
 
@@ -231,12 +242,15 @@ def _write(record: dict, out_dir: Optional[str], tag: str,
 
 def run_cell(arch: str, shape, multi_pod: bool = False,
              out_dir: Optional[str] = None, save_trace: bool = False, *,
-             mesh=None, reduced: bool = False) -> dict:
+             mesh=None, reduced: bool = False,
+             overrides: Optional[dict] = None) -> dict:
     """The record of ``arch`` at ``shape`` (a name of ``SHAPES`` or a
     ``ShapeSpec``) on the production mesh of the current (fake) process
-    group, or on ``mesh``; ``reduced`` takes the family's CPU-sized
-    config, as ``build_cell``'s.  ``save_trace`` writes the walk's op
-    list next to the record in ``out_dir``."""
+    group, or on ``mesh``; ``reduced`` and ``overrides`` as
+    ``build_cell``'s.  ``save_trace`` writes the walk's op list next to
+    the record in ``out_dir``.  A decode record adds
+    ``kv_cache_gather_bytes`` (:func:`kv_cache_gather_bytes`; None for
+    other cells)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.launch.steps import build_cell, materialize
@@ -247,7 +261,7 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
     t0 = time.perf_counter()
     cell = build_cell(arch, shape, mesh, unroll_for_cost=False,
-                      reduced=reduced)
+                      reduced=reduced, overrides=overrides)
     args, _ = materialize(cell, "meta")
     t_build = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -271,6 +285,9 @@ def run_cell(arch: str, shape, multi_pod: bool = False,
         "flops": w.matmul_flops,
         "bytes_accessed": w.hbm_bytes,
         "collective_counts": _collective_counts(walk),
+        "kv_cache_gather_bytes": (
+            kv_cache_gather_bytes(walk["collectives"], cell.cfg.head_dim_)
+            if cell.spec.kind == "decode" else None),
         "device": "meta",
     }
     record.update(analyze_step(walk, arch, cell.spec, n_chips,

@@ -16,7 +16,10 @@ but their output-projection rows are zero, so logits are unchanged.
 
 Decode writes the KV cache in place (``index_put_``) where the reference
 returns a new cache from donated buffers; a sliding-window arch keeps a
-ring buffer of the window's length.
+ring buffer of the window's length.  On a mesh each rank attends over its
+own block of the cache (``cached_attention``), which never moves: where
+the cache is sharded over T the softmax is split over the ranks, as the
+reference's compiled plan splits it.
 """
 
 from __future__ import annotations
@@ -131,19 +134,39 @@ def _grouped_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            mask: torch.Tensor, head_dim: int) -> torch.Tensor:
+            mask: Optional[torch.Tensor], head_dim: int,
+            reduce=None) -> torch.Tensor:
     """Masked grouped attention: q (B,S,Hq,D) over k, v (B,T,Hk,D) where
-    ``mask`` (B,1,1,S|1,T) holds -> (B,S,Hq,D) in q's dtype."""
+    ``mask`` (B,1,1,S|1,T) holds (None: everywhere) -> (B,S,Hq,D) in q's
+    dtype.  With ``reduce`` (``layout.decode_attend``) k, v hold one block
+    of T: the float32 softmax's row max and sum, and the output (in
+    float32), are all-reduced over the other blocks."""
     scores = _grouped_scores(q, k) / math.sqrt(head_dim)       # (B,Hk,G,S,T)
-    scores = torch.where(mask, scores, NEG_INF)
-    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
-    return _grouped_out(probs, v)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    if reduce is None:
+        probs = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
+        return _grouped_out(probs, v)
+    scores = scores.to(torch.float32)
+    e = torch.exp(scores - reduce(scores.amax(-1, keepdim=True), "max"))
+    probs = (e / reduce(e.sum(-1, keepdim=True), "sum")).to(q.dtype)
+    return reduce(_grouped_out(probs, v).to(torch.float32), "sum").to(q.dtype)
 
 
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: torch.Tensor, head_dim: int) -> torch.Tensor:
     """:func:`_attend`, on DTensors per rank (``layout.attend``)."""
     return layout.attend(lambda *a: _attend(*a, head_dim), q, k, v, mask)
+
+
+def cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor],
+                     head_dim: int) -> torch.Tensor:
+    """:func:`_attend` of one decode query over a cache, on DTensors on
+    each rank's own block of the cache (``layout.decode_attend``)."""
+    return layout.decode_attend(
+        lambda q, k, v, m, reduce: _attend(q, k, v, m, head_dim, reduce),
+        q, k, v, mask)
 
 
 def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
@@ -229,8 +252,6 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     unwritten, in the future or outside the window are masked out."""
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)                       # (B,1,H,D)
-    q, k, v = layout.attention_heads(x, cfg.kv_heads_padded, q, k, v,
-                                     split_queries=False)
     if cfg.mrope_sections is not None:
         # text-phase decode: all three position streams advance together
         q, k = _rope(cfg, q, k, None, None, pos[None, :, None].expand(3, b, 1))
@@ -248,6 +269,7 @@ def decode_attention(p: dict, cfg: AttnConfig, x: torch.Tensor, cache: dict,
     ok = (cpos >= 0) & (cpos <= pos[:, None])
     if cfg.window is not None:
         ok &= (pos[:, None] - cpos) < cfg.window
-    out = _out_proj(p, _attention(q, ck.to(x.dtype), cv.to(x.dtype),
-                                  ok[:, None, None, None, :], cfg.head_dim))
+    out = _out_proj(p, cached_attention(q, ck.to(x.dtype), cv.to(x.dtype),
+                                        ok[:, None, None, None, :],
+                                        cfg.head_dim))
     return out, cache

@@ -19,7 +19,6 @@ reference; it is driven directly.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -203,10 +202,12 @@ class EncDecLM(LMModule):
         place."""
         w = self.compute_params()
         x = self._embed(w, tokens)
-        x = x + w["dec_pos"][pos.long()][:, None].to(x.dtype)
+        # the residual stream's batch over data, as DecoderLM's: DTensor's
+        # own layout of the sum leaves it over the model axis
+        x = constrain(x + w["dec_pos"][pos.long()][:, None].to(x.dtype),
+                      "btd")
         ck, cv = cross_kv
         sc = cache["self"]
-        scale = math.sqrt(self.cross_cfg.head_dim)
         for i, lp in enumerate(w["dec_layers"]):
             h = _ln(x, lp, "ln1")
             h, _ = attn.decode_attention(
@@ -215,10 +216,8 @@ class EncDecLM(LMModule):
             x = x + h
             h = _ln(x, lp, "ln_x")
             q = L.linear(h, lp["cross_attn"]["wq"])
-            scores = attn._grouped_scores(q, ck[i]) / scale
-            probs = torch.softmax(scores.to(torch.float32), -1).to(x.dtype)
-            x = x + attn._out_proj(lp["cross_attn"],
-                                   attn._grouped_out(probs, cv[i]))
+            x = x + attn._out_proj(lp["cross_attn"], attn.cached_attention(
+                q, ck[i], cv[i], None, self.cross_cfg.head_dim))
             h = _ln(x, lp, "ln2")
             x = constrain(x + mlp_apply(lp["mlp"], h, "gelu"), "btd")
         x = _ln(x, w, "dec_final")

@@ -89,7 +89,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
@@ -139,11 +139,20 @@ _FREE = {"_unsafe_view", "lift_fresh", "empty", "empty_like",
 class Collective:
     """One collective on one rank: its kind, its result's bytes (the
     reference's HLO line's left-hand shape), its group's size and global
-    ranks."""
+    ranks; the local shape and dtype of its (first) result tensor."""
     kind: str
     nbytes: int
     group_size: int
     ranks: tuple
+    shape: tuple = ()
+    dtype: Optional[torch.dtype] = None
+
+
+def _collective(kind: str, res, ranks: tuple) -> Collective:
+    first = _tensors(res)[:1]
+    shape, dtype = ((tuple(first[0].shape), first[0].dtype) if first
+                    else ((), None))
+    return Collective(kind, _nbytes(res), len(ranks), ranks, shape, dtype)
 
 
 def _tensors(tree) -> list:
@@ -241,8 +250,8 @@ class DispatchWalk(TorchDispatchMode):
                 self._quiet -= 1
             if not self._quiet:
                 ranks = _group_ranks(mesh.get_group(mesh_dim))
-                self.collectives.append(Collective(
-                    "all-to-all", _nbytes(out), len(ranks), ranks))
+                self.collectives.append(_collective("all-to-all", out,
+                                                    ranks))
                 self.hbm_bytes += _nbytes(input) + _nbytes(out)
             return out
 
@@ -349,8 +358,7 @@ class DispatchWalk(TorchDispatchMode):
             kind, g = coll
             ranks = _group_ranks(args[g])
             res = out if ns != "c10d" else args[0]
-            self.collectives.append(Collective(kind, _nbytes(res),
-                                               len(ranks), ranks))
+            self.collectives.append(_collective(kind, res, ranks))
         out_tensors = _tensors(out)
         if func.is_view or name in _FREE or not out_tensors:
             return

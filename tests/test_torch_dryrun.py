@@ -11,7 +11,10 @@ groups in this process (meta DTensors: no memory, no communication).
   ranks, so the K and V projections run whole on both model ranks, while
   the query heads, and with them attention's ``bmm``s, split over them
   (the reference's rules: ``q_heads`` over the model axis, ``kv_heads``
-  replicated; ``distributed/layout.py``).
+  replicated; ``distributed/layout.py``).  The same holds for the decode
+  cell at (16, 64): its cache is sharded over T on the model axis, each
+  rank scores its own block of T, and no all-gather moves the cache
+  (``kv_cache_gather_bytes`` 0).
 * A record of that cell on the (4, 2) mesh has the reference's keys
   (read from ``repro/launch/dryrun.py``'s source and its
   ``analyze_lowered``), its argument bytes equal the local bytes of the
@@ -49,6 +52,7 @@ from repro_torch.configs.registry import ShapeSpec
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SHAPE = ShapeSpec("train_4k", 64, 8, "train")
+DECODE = ShapeSpec("decode_32k", 64, 16, "decode")
 SINGLE_DEVICE_FLOPS = 1_006_632_960
 CUT = {"n_chunks": 16, "m_per_chunk": 4096}
 
@@ -109,6 +113,23 @@ def _single_device_walk():
     return cfg, w, g, (small, state_bytes)
 
 
+def _single_device_decode_flops() -> int:
+    """The matmul FLOPs of the reduced smollm-135m's decode step at
+    DECODE on one device (meta)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline.dispatch_walk import walk
+
+    model = build_model(get_config("smollm-135m", reduced=True, tp=2),
+                        device="meta")
+    b = DECODE.global_batch
+    cache = model.init_cache(b, DECODE.seq_len)
+    tokens = torch.empty((b, 1), dtype=torch.int32, device="meta")
+    pos = torch.empty((b,), dtype=torch.int32, device="meta")
+    _, w = walk(model.decode_step, cache, tokens, pos)
+    return w["matmul_flops"]
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every drive in sequence (a process has one default group)."""
@@ -121,6 +142,7 @@ def runs(tmp_path_factory):
     out = {}
     (out["cfg"], out["single"], out["grad"],
      out["donated"]) = _single_device_walk()
+    out["decode_single"] = _single_device_decode_flops()
     with dryrun.fake_group(1):
         mesh = make_debug_mesh(1, 1, "cpu")
         out["trace_dir"] = tmp_path_factory.mktemp("dryrun")
@@ -137,6 +159,8 @@ def runs(tmp_path_factory):
                                            str(out["rank0_dir"]), True,
                                            reduced=True, mesh=mesh)
         out["comm"] = dict(comm.get_comm_counts())
+        out["decode_rank0"] = dryrun.run_cell("smollm-135m", DECODE,
+                                              reduced=True, mesh=mesh)
         cell = build_cell("smollm-135m", SHAPE, mesh, reduced=True)
         args, _ = materialize(cell, "meta")
         out["dtensor_bytes"] = _local_bytes(args)
@@ -176,6 +200,24 @@ def test_ranks_sum_to_the_single_device_step_and_what_is_replicated(runs):
     kv_proj = cfg.num_layers * 2 * 3 * (2 * tokens * cfg.d_model * kv)
     replicated = (model_ranks - 1) * kv_proj
     assert 8 * _flops(runs["rank0"]) == SINGLE_DEVICE_FLOPS + replicated
+
+
+def test_decode_ranks_sum_to_the_single_device_step_and_what_is_replicated(
+        runs):
+    """The decode cell on the (4, 2) mesh: the cache is sharded over T on
+    the model axis (one KV head), each rank scores its own block of T
+    (the softmax split over the model ranks) and nothing of the cache is
+    gathered; the 8 ranks count the single-device step's FLOPs plus the
+    K and V projections, which run whole on both model ranks."""
+    cfg, rec = runs["cfg"], runs["decode_rank0"]
+    model_ranks = 2
+    assert cfg.num_kv_heads % model_ranks != 0
+    assert rec["kv_cache_gather_bytes"] == 0
+    kv = cfg.num_kv_heads * cfg.head_dim_
+    kv_proj = cfg.num_layers * 2 * (2 * DECODE.global_batch * cfg.d_model
+                                    * kv)
+    replicated = (model_ranks - 1) * kv_proj
+    assert 8 * _flops(rec) == runs["decode_single"] + replicated
 
 
 def test_the_donated_step_holds_no_second_state(runs):

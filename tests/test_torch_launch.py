@@ -36,9 +36,18 @@ inputs.
   (sharded, replicated, a gradient in another layout) keeps every local
   shard's storage and placements and equals the update of the whole
   tensors within 1e-6 relative.
-* On ``(2, 2)``, the ``decode`` cell of qwen3-0.6b and of zamba2-1.2b
-  (the module's parameters and caches as DTensors) equals single-device
-  decode logits over three steps within 1e-5 of max |logit|.
+* On ``(2, 2)``, the ``decode`` cells (the module's parameters and
+  caches as DTensors) equal single-device decode logits (the same config,
+  its heads padded for the model axis, on one device) over three steps
+  within 1e-5 of max |logit|, in every layout of the cache on the model
+  axis: qwen3-0.6b and zamba2-1.2b (KV heads over the model axis);
+  smollm-135m with 9 query and 3 KV heads, padded to 10 and 5, so its
+  cache is sharded over T and the softmax split over the model ranks;
+  whisper-large-v3's self- and cross-attention caches over the heads, and
+  with one KV head over T; and smollm-135m with a sliding window of 2, so
+  the ring buffer's two slots lie on the two model ranks and the third
+  step overwrites the first slot (at the first step the second rank holds
+  no valid slot).
 * A checkpoint saved on ``(2, 2)`` restores onto ``(2, 1)`` (ranks 0 and
   1 of the same group) with ``restore(shardings=)`` to the saved arrays
   bit for bit, each leaf in the new mesh's layout; a checkpoint written by
@@ -72,7 +81,16 @@ MESHES = ((1, 1), (2, 2), (4, 2))
 TRAIN = ShapeSpec("train_small", 16, 8, "train")
 DECODE = ShapeSpec("decode_small", 16, 8, "decode")
 TRAIN_ARCHS = ("smollm-135m", "mixtral-8x7b")
-DECODE_ARCHS = ("qwen3-0.6b", "zamba2-1.2b")
+# decode cells: (arch, overrides); the cache's layout on the (2, 2) mesh's
+# model axis in the comments
+DECODE_CELLS = {
+    "qwen3-0.6b": ("qwen3-0.6b", {}),                            # heads
+    "zamba2-1.2b": ("zamba2-1.2b", {}),                          # heads
+    "smollm-135m": ("smollm-135m", dict(num_heads=9, num_kv_heads=3)),  # T
+    "whisper-large-v3": ("whisper-large-v3", {}),                # heads
+    "whisper-over-t": ("whisper-large-v3", dict(num_kv_heads=1)),  # T
+    "window": ("smollm-135m", dict(window=2)),                   # T, a ring
+}
 # gradient cells on the (4, 2) mesh: query heads straddling KV groups and
 # a padded vocabulary; the VLM's sliced logits
 GRAD_MESH = (4, 2)
@@ -102,6 +120,14 @@ def _full(x):
     if isinstance(x, DTensor):
         x = x.full_tensor()
     return x.detach().cpu().numpy()
+
+
+def cache_leaf(cache, key):
+    """A decode cache's (L, B, T, H, D) attention leaf ``key``."""
+    for part in ("self", "shared"):
+        if part in cache:
+            return cache[part][key]
+    return cache[key]
 
 
 def _decode_tokens(vocab):
@@ -156,19 +182,25 @@ def _rank_main(rank, ranks, init_file, out_dir, shape, ckpt_dir, ref_ckpt):
                         for name, (arch, ov) in GRAD_CELLS.items()}
         out["ce"] = _vocab_parallel_ce(mesh)
         out["adamw"] = _sharded_adamw(mesh)
-    for arch in (DECODE_ARCHS if shape == DECODE_MESH else ()):
-        cell = build_cell(arch, DECODE, mesh, overrides=_overrides(arch),
+    for name in (DECODE_CELLS if shape == DECODE_MESH else ()):
+        arch, overrides = DECODE_CELLS[name]
+        cell = build_cell(arch, DECODE, mesh,
+                          overrides={**_overrides(arch), **overrides},
                           reduced=True)
-        (module, cache, _, _), _ = materialize(cell, "cpu", seed=0)
-        logits = []
+        args, _ = materialize(cell, "cpu", seed=0)
+        (module, cache), cross = args[:2], args[4:]
+        got = {"logits": [], "cross": [tuple(_full(t) for t in kv)
+                                       for kv in cross],
+               "kv_placements": [tuple(cache_leaf(cache, k).placements)
+                                 for k in ("k", "v")]}
         for step, toks in enumerate(_decode_tokens(cell.cfg.vocab_size)):
             tok = distribute(torch.as_tensor(toks), cell.args[2].sharding)
             pos = distribute(torch.full((DECODE.global_batch,), step,
                                         dtype=torch.int32),
                              cell.args[3].sharding)
-            lo, cache = run_cell(cell, module, cache, tok, pos)
-            logits.append(_full(lo))
-        out["decode"][arch] = logits
+            lo, cache = run_cell(cell, module, cache, tok, pos, *cross)
+            got["logits"].append(_full(lo))
+        out["decode"][name] = got
     try:
         make_production_mesh(device_type="cpu")
         out["production_mesh"] = "built"
@@ -511,27 +543,44 @@ def test_sharded_adamw_keeps_storages_and_equals_whole(runs):
                 want).max(), (name, k)
 
 
-@pytest.mark.parametrize("arch", DECODE_ARCHS)
-def test_decode_cell_equals_single_device(runs, arch):
+# the cache's placement on the model axis (mesh dim 1) of each cell
+DECODE_LAYOUT = {"qwen3-0.6b": 3, "zamba2-1.2b": 3, "smollm-135m": 2,
+                 "whisper-large-v3": 3, "whisper-over-t": 2, "window": 2}
+
+
+@pytest.mark.parametrize("name", DECODE_CELLS)
+def test_decode_cell_equals_single_device(runs, name):
     import dataclasses
+
+    from torch.distributed.tensor import Shard
 
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
 
-    cfg = dataclasses.replace(get_config(arch, reduced=True, tp=1),
-                              **_overrides(arch))
+    arch, overrides = DECODE_CELLS[name]
+    cfg = dataclasses.replace(
+        get_config(arch, reduced=True, tp=DECODE_MESH[1]),
+        **_overrides(arch), **overrides)
     if cfg.family == "hybrid":
         cfg = dataclasses.replace(cfg, long_window=None)
     model = build_model(cfg, device="cpu", seed=0)
     cache = model.init_cache(DECODE.global_batch, DECODE.seq_len,
                              dtype=torch.float32)
-    got = runs["groups"][DECODE_MESH]["decode"][arch]
-    assert len(got) == DECODE_STEPS
+    got = runs["groups"][DECODE_MESH]["decode"][name]
+    # the (L, B, T, H, D) cache over the batch on data and over heads (3)
+    # or T (2) on the model axis
+    want_pl = (Shard(1), Shard(DECODE_LAYOUT[name]))
+    assert got["kv_placements"] == [want_pl, want_pl]
+    if name == "window":
+        assert cache_leaf(cache, "k").shape[2] == 2 < DECODE_STEPS
+    cross = [torch.as_tensor(t) for kv in got["cross"] for t in kv]
+    assert len(got["logits"]) == DECODE_STEPS
     for step, toks in enumerate(_decode_tokens(cfg.vocab_size)):
         pos = torch.full((DECODE.global_batch,), step, dtype=torch.int32)
-        want, cache = model.decode_step(cache, torch.as_tensor(toks), pos)
+        want, cache = model.decode_step(cache, torch.as_tensor(toks), pos,
+                                        *([tuple(cross)] if cross else []))
         want = want.numpy()
-        assert np.max(np.abs(got[step] - want)) <= RTOL * np.max(
+        assert np.max(np.abs(got["logits"][step] - want)) <= RTOL * np.max(
             np.abs(want)), step
 
 
